@@ -22,10 +22,6 @@ from gym_pybullet_drones_tpu import params as P
 from gym_pybullet_drones_tpu.envs import (
     AviaryConfig, HoverAviary, HoverTask, MultiHoverAviary, MultiHoverTask)
 from gym_pybullet_drones_tpu.rl import PPOConfig, make_train
-from gym_pybullet_drones_tpu.utils.platform import select_platform
-
-select_platform()  # host-loop demo: CPU by default (GPD_PLATFORM overrides)
-
 from gym_pybullet_drones_tpu.utils.enums import ActionType, ObservationType, Physics
 from gym_pybullet_drones_tpu.utils.logger import Logger
 from gym_pybullet_drones_tpu.utils.utils import sync, str2bool
@@ -66,6 +62,9 @@ def run(multiagent=DEFAULT_MA, output_folder=DEFAULT_OUTPUT_FOLDER,
                     num_minibatches=4, update_epochs=10,
                     total_timesteps=total_timesteps)
     init, update, evaluate, network = make_train(env_cfg, task, ppo)
+    dev = jax.devices()[0]
+    print(f"[INFO] training on {dev.platform} ({dev.device_kind}), "
+          f"env path {update.env_path}")
 
     ts = init(jax.random.key(seed))
     upd = jax.jit(update)

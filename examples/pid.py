@@ -1,6 +1,6 @@
 """Flagship demo: CtrlAviary + DSL PID tracking circular helix waypoints.
 
-TPU-native counterpart of reference examples/pid.py (same CLI flags, same
+JAX counterpart of reference examples/pid.py (same CLI flags, same
 3-drone circular trajectory around (0, -0.3), same 240/48 Hz rates): the
 per-drone Python controller loop of the reference (pid.py:141-147) becomes
 one batched functional PID call fused with the env step.

@@ -1,10 +1,10 @@
-"""gym-pybullet-drones-tpu: a TPU-native quadrotor environment suite.
+"""gym-pybullet-drones-tpu: a batched quadrotor environment suite in JAX.
 
 A from-scratch JAX/XLA reimplementation of the capabilities of
 gym-pybullet-drones (komxun routing fork): batched quadrotor physics,
 embedded controllers, RL task environments, an on-device PPO learner, and
-pod-scale sharding — replacing the reference's PyBullet/C++ single-env stack
-with jit/vmap-fused kernels over thousands of env instances.
+multi-device sharding — replacing the reference's PyBullet/C++ single-env
+stack with jit/vmap-fused kernels over thousands of env instances.
 """
 __version__ = "0.1.0"
 
@@ -16,17 +16,22 @@ from gym_pybullet_drones_tpu.utils.enums import (  # noqa: F401
     Physics,
 )
 
-from gymnasium.envs.registration import register as _register
+try:
+    from gymnasium.envs.registration import register as _register
+except ImportError:  # gymnasium is optional: no gym IDs without it
+    _register = None
 
 # Gymnasium IDs with parity to the reference registration
-# (/root/reference/gym_pybullet_drones/__init__.py:3-21)
-for _id, _entry in [
-    ("ctrl-aviary-v0", "gym_pybullet_drones_tpu.envs:CtrlAviary"),
-    ("velocity-aviary-v0", "gym_pybullet_drones_tpu.envs:VelocityAviary"),
-    ("hover-aviary-v0", "gym_pybullet_drones_tpu.envs:HoverAviary"),
-    ("multihover-aviary-v0", "gym_pybullet_drones_tpu.envs:MultiHoverAviary"),
-]:
-    try:
-        _register(id=_id, entry_point=_entry)
-    except Exception:  # already registered (re-import)
-        pass
+# (reference gym_pybullet_drones/__init__.py:3-21)
+if _register is not None:
+    for _id, _entry in [
+        ("ctrl-aviary-v0", "gym_pybullet_drones_tpu.envs:CtrlAviary"),
+        ("velocity-aviary-v0", "gym_pybullet_drones_tpu.envs:VelocityAviary"),
+        ("hover-aviary-v0", "gym_pybullet_drones_tpu.envs:HoverAviary"),
+        ("multihover-aviary-v0",
+         "gym_pybullet_drones_tpu.envs:MultiHoverAviary"),
+    ]:
+        try:
+            _register(id=_id, entry_point=_entry)
+        except Exception:  # already registered (re-import)
+            pass

@@ -20,6 +20,7 @@ import math
 from typing import NamedTuple
 
 import jax.numpy as jnp
+from jax.lax import Precision
 
 from gym_pybullet_drones_tpu.params import DroneParams, G
 from gym_pybullet_drones_tpu.utils.enums import DroneModel
@@ -50,6 +51,10 @@ MIXER_CF2P = (
     (0.0, 1.0, -1.0),
     (-1.0, 0.0, 1.0),
 )
+
+# controller contractions run in full float32 on every backend (the GPU's
+# default would allow TF32 for float32 dots)
+HIGHEST = Precision.HIGHEST
 
 
 class PIDState(NamedTuple):
@@ -131,8 +136,10 @@ def compute_control(params: DroneParams, state: PIDState, dt: float,
     target_rotation_att = quat_ops.quat_to_mat(
         quat_ops.euler_xyz_to_quat(target_euler))
     rot_matrix_e = (
-        jnp.einsum("...ji,...jk->...ik", target_rotation_att, cur_rotation)
-        - jnp.einsum("...ji,...jk->...ik", cur_rotation, target_rotation_att))
+        jnp.einsum("...ji,...jk->...ik", target_rotation_att, cur_rotation,
+                   precision=HIGHEST)
+        - jnp.einsum("...ji,...jk->...ik", cur_rotation, target_rotation_att,
+                     precision=HIGHEST))
     rot_e = jnp.stack(
         [rot_matrix_e[..., 2, 1], rot_matrix_e[..., 0, 2],
          rot_matrix_e[..., 1, 0]], axis=-1)
@@ -148,7 +155,7 @@ def compute_control(params: DroneParams, state: PIDState, dt: float,
     mixer = jnp.asarray(
         MIXER_CF2P if params.model == DroneModel.CF2P else MIXER_CF2X, dtype)
     pwm = thrust[..., None] + jnp.einsum("mt,...t->...m", mixer,
-                                         target_torques)
+                                         target_torques, precision=HIGHEST)
     pwm = jnp.clip(pwm, MIN_PWM, MAX_PWM)
     rpm = PWM2RPM_SCALE * pwm + PWM2RPM_CONST
 

@@ -20,6 +20,7 @@ import math
 from typing import NamedTuple
 
 import jax.numpy as jnp
+from jax.lax import Precision
 
 RAD2DEG = 180.0 / math.pi
 DEG2RAD = math.pi / 180.0
@@ -41,6 +42,12 @@ SUPPLY_VOLTAGE = 3.0
 # ---------------------------------------------------------------------------
 # 2-pole Butterworth low-pass (firmware filter.c lpf2pInit/lpf2pApply)
 # ---------------------------------------------------------------------------
+
+# controller contractions run in full float32 on every backend (the GPU's
+# default would allow TF32 for float32 dots)
+HIGHEST = Precision.HIGHEST
+
+
 class Lpf2pState(NamedTuple):
     d1: jnp.ndarray
     d2: jnp.ndarray
@@ -144,8 +151,8 @@ def mellinger_control(state: FirmwareState, setpoint: Setpoint,
     x_des = jnp.cross(y_des, z_des)
     R_des = jnp.stack([x_des, y_des, z_des], axis=-1)
 
-    eRM = (jnp.einsum("...ji,...jk->...ik", R_des, R)
-           - jnp.einsum("...ji,...jk->...ik", R, R_des))
+    eRM = (jnp.einsum("...ji,...jk->...ik", R_des, R, precision=HIGHEST)
+           - jnp.einsum("...ji,...jk->...ik", R, R_des, precision=HIGHEST))
     # vee with the firmware's legacy pitch sign flip
     eR = jnp.stack([eRM[..., 2, 1], -eRM[..., 0, 2], eRM[..., 1, 0]],
                    axis=-1) * 0.5

@@ -1,4 +1,11 @@
-"""Environments: functional core, task layer, Gymnasium adapters."""
+"""Environments: functional core, task layer, Gymnasium adapters.
+
+The Gymnasium adapters (BatchedEnv, the *Aviary classes) need the optional
+`gymnasium` package; they are imported on first access, so the functional
+core, the tasks and the trainer import without it.
+"""
+import importlib
+
 from gym_pybullet_drones_tpu.envs.core import (  # noqa: F401
     AviaryConfig,
     EnvState,
@@ -16,14 +23,22 @@ from gym_pybullet_drones_tpu.envs.tasks import (  # noqa: F401
     RLTask,
     VelocityTask,
 )
-from gym_pybullet_drones_tpu.envs.gym_adapter import (  # noqa: F401
-    BatchedEnv,
-    CtrlAviary,
-    FunctionalAviary,
-    HoverAviary,
-    MultiHoverAviary,
-    VelocityAviary,
-)
-from gym_pybullet_drones_tpu.envs.cf_aviary import CFAviary  # noqa: F401
-from gym_pybullet_drones_tpu.envs.beta_aviary import BetaAviary  # noqa: F401
 from gym_pybullet_drones_tpu.envs.routing import RoutingTask, make_routing_config  # noqa: F401
+
+_ADAPTERS = {
+    "BatchedEnv": "gym_adapter",
+    "CtrlAviary": "gym_adapter",
+    "FunctionalAviary": "gym_adapter",
+    "HoverAviary": "gym_adapter",
+    "MultiHoverAviary": "gym_adapter",
+    "VelocityAviary": "gym_adapter",
+    "CFAviary": "cf_aviary",
+    "BetaAviary": "beta_aviary",
+}
+
+
+def __getattr__(name):
+    if name in _ADAPTERS:
+        module = importlib.import_module(f"{__name__}.{_ADAPTERS[name]}")
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

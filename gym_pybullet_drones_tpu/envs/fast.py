@@ -1,33 +1,19 @@
-"""Fast batched stepping path: Pallas-fused physics under the task layer.
+"""Batched env stepping: the two paths and the rule that picks one.
 
-The general path (core.step under jax.vmap) is fully flexible; this module
-provides the throughput configuration used by benchmarks and large-scale
-training: the env batch is kept as explicit leading axes and the DYN physics
-of a whole control step runs as ONE fused Pallas launch over the flattened
-(envs * drones) batch (ops/pallas_dyn.py), with the task logic (action
-mapping, obs/reward/termination, auto-reset) computed on the same flattened
-arrays.
-
-Layout notes (all measured on TPU, see SCALING.md):
-- The lax.scan CARRY holds state leaves with the (env, drone) axes collapsed
-  — (B*N, k) — because TPU tiles the trailing two dims of every materialized
-  buffer to (8, 128): a (B, 2, 3) carry would be padded ~350x and
-  relayout-copied every iteration.
-- The action-history ring is carried 2-D as (B*N, BUF*A) (one padded tile
-  row per 8 drones); the per-step push is a slice+concat on the last axis,
-  identical to the reference's deque shift in row-major order.
-- Task pre/post processing runs UNBATCHED on the flat (B*N, k) leaves via
-  the tasks' `_map_to_rpm` / `flat_post` hooks (tasks.py) — the earlier
-  per-env vmap materialized (B, N, k) intermediates that dominated the
-  step time for N > 1 (38 us of a 66 us MultiHover step).  Tasks without
-  flat hooks (e.g. RGB observations) fall back to the vmapped methods.
-- Deterministic tasks auto-reset to a CONSTANT state; it is precomputed
-  once here instead of re-deriving it (vmapped threefry splits + initial
-  obs) inside every scan iteration.
-
-Only Physics.DYN + float32 states are eligible for the Pallas kernel (the
-fused f32 math); other configs fall back to the vmapped core kernels
-transparently (still with the flattened carry).
+- make_batched_step: the general, inspectable path.  The env batch is
+  kept as explicit leading axes with the (env, drone) axes of the scan
+  carry collapsed to (B*N, k); physics runs through the XLA kernels of
+  envs/core.py and the task logic through the tasks' flat hooks (or their
+  vmapped per-env methods).  Handles every configuration: PYB-family
+  physics, randomised resets, RGB observations, float64.
+- make_fused_rollout: the whole control step as ONE Pallas launch
+  (ops/pallas_fused.py) with a one-buffer carry, for the configurations
+  `fused_ineligibility` accepts (DYN physics, KIN observations,
+  deterministic resets).  It compiles through Triton for the GPU;
+  elsewhere it runs only in the Pallas interpreter, when asked to.
+- make_env_step: picks one by `select_env_path` — the fused kernel where
+  it is eligible, measured faster (at most FUSED_MAX_DRONES drones per
+  env) and the backend is the GPU, the XLA step otherwise.
 """
 from __future__ import annotations
 
@@ -38,15 +24,12 @@ import jax.numpy as jnp
 import numpy as np
 
 from gym_pybullet_drones_tpu.envs import core
-from gym_pybullet_drones_tpu.params import CF2X
-from gym_pybullet_drones_tpu.utils.enums import ActionType, Physics
-from gym_pybullet_drones_tpu.ops import pallas_dyn, pallas_env, pallas_pid
-from gym_pybullet_drones_tpu.ops.dynamics import DynState
+from gym_pybullet_drones_tpu.utils.enums import (
+    ActionType, ObservationType, Physics)
 
 
 def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
-                      use_pallas: bool | None = None, autoreset: bool = True,
-                      dtype=jnp.float32, mesh=None,
+                      autoreset: bool = True, dtype=jnp.float32, mesh=None,
                       obs_layout: str = "drone"):
     """Build step_fn over batched EnvState with a flattened (B*N, ...) carry.
 
@@ -54,42 +37,18 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
     step_fn(state, action) -> (state, obs, reward, term, trunc) with per-env
     leading axes on the outputs (obs (B, N, D), reward/term/trunc (B,)).
 
-    use_pallas: None (default) enables the Pallas kernels only on the TPU
-    backend — on CPU, Pallas runs in interpret mode (per-op Python
-    execution), orders of magnitude slower than the compiled XLA path
-    this falls back to.  Pass True/False to force (the kernel-equivalence
-    tests force True to exercise the kernels under interpretation).
-
     mesh: optional jax.sharding.Mesh — step_fn is then wrapped in shard_map
     along the mesh's first axis (env-batch data parallelism; num_envs must
-    divide evenly).  Required for the Pallas kernels to partition instead
-    of gathering on real multi-chip meshes.
+    divide evenly).
 
     obs_layout: "drone" -> obs (B, N, D) (reference per-drone layout);
-    "flat" -> obs (B, N*D).  TPU tiles the trailing two dims of every
-    buffer to (8, 128), so for small N the 3-D form pads ~N/8-fold and is
-    relayout-copied every step — learners that flatten anyway (rl/ppo.py)
-    should ask for "flat".
+    "flat" -> obs (B, N*D), the layout learners that flatten anyway
+    (rl/ppo.py) consume.
     """
     if obs_layout not in ("drone", "flat"):
         raise ValueError(f"unknown obs_layout {obs_layout!r}")
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     n = cfg.num_drones
-    bn = num_envs * n
     buf_len, act_dim = task.action_buffer_shape(cfg)
-    # DYN physics: drones are independent -> flatten (env, drone) into
-    # lanes (ops/pallas_dyn.py / ops/pallas_pid.py, best lane utilization).
-    # PYB family: drones couple (downwash, contact) -> envs-in-lanes /
-    # drones-in-rows kernel (ops/pallas_env.py).
-    pallas_ok = (use_pallas and cfg.physics == Physics.DYN
-                 and dtype == jnp.float32)
-    # the PYB-family kernel unrolls exactly SOLVER_ITERATIONS PGS sweeps;
-    # a non-default cfg.solver_iterations runs on the XLA path instead
-    from gym_pybullet_drones_tpu.ops.rigid_body import SOLVER_ITERATIONS
-    pallas_env_ok = (use_pallas and cfg.physics != Physics.DYN
-                     and dtype == jnp.float32
-                     and cfg.solver_iterations == SOLVER_ITERATIONS)
 
     batched_reset = jax.vmap(
         lambda k: core.reset(cfg, task, key=k, dtype=dtype))
@@ -120,10 +79,6 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
                 s.action_buffer.shape[0] // n, n, buf_len, act_dim),
             ctrl_state=jax.tree.map(r3, s.ctrl_state))
 
-    def _unflatten_view(s: core.EnvState) -> core.EnvState:
-        """Per-env (N, ...) leaves view for the vmapped fallback methods."""
-        return _unflatten(s)
-
     def reset_fn(seed: int = 0):
         keys = jax.random.split(jax.random.PRNGKey(seed), num_envs)
         state, obs, _ = batched_reset(keys)
@@ -140,52 +95,12 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
             return obs.reshape(lb, n, obs.shape[1])
         return obs.reshape(lb, n * obs.shape[1])
 
-    # request the kernel-emitted 12-dim obs block when the task's flat
-    # post-processing consumes it (KIN observations)
-    from gym_pybullet_drones_tpu.utils.enums import ObservationType
-    want_obs12 = (getattr(task, "obs", None) == ObservationType.KIN)
-
     def _physics(flat: core.EnvState, flat_rpm: jnp.ndarray):
-        """Advance the physics on the flattened carry -> (state, obs12|None)."""
-        if pallas_ok:
-            dyn = DynState(pos=flat.pos, quat=flat.quat, vel=flat.vel,
-                           rpy_rates=flat.rpy_rates, ang_v=flat.ang_v)
-            obs12 = None
-            if want_obs12:
-                out, obs12 = pallas_dyn.dyn_ctrl_step(
-                    cfg.drone, dyn, cfg.steps_per_ctrl, cfg.pyb_dt,
-                    flat_rpm, True)
-            else:
-                out = pallas_dyn.dyn_ctrl_step(
-                    cfg.drone, dyn, cfg.steps_per_ctrl, cfg.pyb_dt,
-                    flat_rpm)
-            return flat._replace(
-                pos=out.pos, quat=out.quat, vel=out.vel,
-                rpy_rates=out.rpy_rates, ang_v=out.ang_v,
-                last_rpm=flat_rpm), obs12
-        if pallas_env_ok:
-            dyn = DynState(pos=flat.pos, quat=flat.quat, vel=flat.vel,
-                           rpy_rates=flat.rpy_rates, ang_v=flat.ang_v)
-            obs12 = None
-            if want_obs12:
-                out, _, _, obs12 = pallas_env.env_ctrl_step(
-                    None, cfg.drone, cfg.physics, n, cfg.steps_per_ctrl,
-                    cfg.pyb_dt, cfg.ctrl_dt, cfg.obstacles, dyn, None,
-                    flat_rpm, flat.last_rpm, True)
-            else:
-                out, _, _ = pallas_env.env_ctrl_step(
-                    None, cfg.drone, cfg.physics, n, cfg.steps_per_ctrl,
-                    cfg.pyb_dt, cfg.ctrl_dt, cfg.obstacles, dyn, None,
-                    flat_rpm, flat.last_rpm)
-            return flat._replace(
-                pos=out.pos, quat=out.quat, vel=out.vel,
-                rpy_rates=out.rpy_rates, ang_v=out.ang_v,
-                last_rpm=flat_rpm), obs12
-
-        # XLA fallback: the core substep kernels broadcast over the flat
-        # (B*N, k) batch directly for the per-drone physics; downwash and
-        # drone-drone contact couple drones within an env, so those
-        # configurations keep the (B, N, k) structure via vmap.
+        """Advance the physics on the flattened carry."""
+        # the core substep kernels broadcast over the flat (B*N, k) batch
+        # directly for the per-drone physics; downwash and drone-drone
+        # contact couple drones within an env, so those configurations
+        # keep the (B, N, k) structure via vmap.
         drone_coupled = (
             cfg.physics in (Physics.PYB_DW, Physics.PYB_GND_DRAG_DW)
             or (cfg.physics != Physics.DYN and n > 1))
@@ -196,23 +111,15 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
                 return s
             st = jax.vmap(sub)(_unflatten(flat),
                                flat_rpm.reshape(-1, n, 4))
-            return _flatten(st), None
+            return _flatten(st)
         s = flat
         for _ in range(cfg.steps_per_ctrl):
             s = core._apply_physics_substep(cfg, s, flat_rpm)
-        return s, None
+        return s
 
     # ---- task pre/post: flat hooks with vmapped fallback ----
     has_flat_post = getattr(task, "flat_post", None) is not None
     has_flat_pre = getattr(task, "_map_to_rpm", None) is not None
-    # PID-family actions + DYN physics: the whole control step (cascaded
-    # PID + substeps) runs as ONE fused Pallas launch (ops/pallas_pid.py).
-    # Embedded controllers are always CF2X (QUIRKS.md #2), so the fused
-    # path is exact for any dynamics model.
-    fused_pid = ((pallas_ok or pallas_env_ok)
-                 and getattr(task, "act", None) in
-                 (ActionType.PID, ActionType.VEL, ActionType.ONE_D_PID)
-                 and getattr(task, "_pid_targets", None) is not None)
 
     vmapped_pre = jax.vmap(lambda s, a: task.preprocess_action(cfg, s, a))
     vmapped_post = jax.vmap(lambda s: (task.compute_obs(cfg, s),
@@ -223,7 +130,7 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
     def _pre(flat: core.EnvState, action):
         """action (B, N, A) -> (rpm (B*N, 4), updated flat state)."""
         if not has_flat_pre:
-            rpm, view = vmapped_pre(_unflatten_view(flat), action)
+            rpm, view = vmapped_pre(_unflatten(flat), action)
             return rpm.reshape(-1, 4), _flatten(view)
         a = action.reshape(-1, act_dim)
         if buf_len > 0:
@@ -233,27 +140,21 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
         rpm, flat = task._map_to_rpm(cfg, flat, a)
         return rpm, flat
 
-    def _post(flat: core.EnvState, obs12=None):
+    def _post(flat: core.EnvState):
         if has_flat_post:
-            out = task.flat_post(cfg, flat, flat.pos.shape[0] // n, n,
-                                 obs12=obs12)
+            out = task.flat_post(cfg, flat, flat.pos.shape[0] // n, n)
             if out is not None:
                 return out
-        return vmapped_post(_unflatten_view(flat))
+        return vmapped_post(_unflatten(flat))
 
     # Deterministic tasks (no reset noise) re-reset to a CONSTANT state:
     # precompute it once (eagerly; the concrete arrays become trace-time
     # constants of step_fn) instead of running the whole vmapped reset
     # inside every scan iteration.
-    randomized = any(
-        getattr(task, f, 0.0)
-        for f in ("reset_pos_noise", "reset_rpy_noise", "reset_vel_noise"))
+    randomized = _randomized_reset(task)
     if autoreset and not randomized:
-        # ONE env's reset (leaves (N, ...)); _tiled_init embeds it tiled to
-        # the runtime batch as trace-time CONSTANTS, cached per local shard
-        # size (shard_map traces see the local size) — a per-step
-        # broadcast+reshape across the drone axis would relayout every leaf
-        # every step on TPU (measured ~26 us/step for N=2 at 4096 lanes).
+        # ONE env's reset (leaves (N, ...)), tiled to the runtime batch per
+        # local shard size (shard_map traces see the local size)
         _s1, _obs1, _ = jax.jit(
             lambda: core.reset(cfg, task, dtype=dtype))()
         _s1_host = jax.tree.map(lambda x: np.asarray(x), _s1)
@@ -286,55 +187,12 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
         state = jax.tree.map(jnp.asarray, state)
         return state._replace(rng=rng), jnp.asarray(obs)
 
-    def _fused_pid_step(flat: core.EnvState, action):
-        """Buffer push + targets in XLA, PID + physics in one Pallas call."""
-        a = action.reshape(-1, act_dim)
-        if buf_len > 0:
-            buf = jnp.concatenate(
-                [flat.action_buffer[:, act_dim:], a], axis=-1)
-            flat = flat._replace(action_buffer=buf)
-        tp, trpy, tv, trr = task._pid_targets(cfg, flat, a)
-        dyn = DynState(pos=flat.pos, quat=flat.quat, vel=flat.vel,
-                       rpy_rates=flat.rpy_rates, ang_v=flat.ang_v)
-        obs12 = None
-        if cfg.physics == Physics.DYN:
-            if want_obs12:
-                out, new_pid, rpm, obs12 = pallas_pid.pid_dyn_ctrl_step(
-                    CF2X, cfg.drone, dyn, flat.ctrl_state,
-                    cfg.steps_per_ctrl, cfg.pyb_dt, cfg.ctrl_dt,
-                    tp, trpy, tv, trr, True)
-            else:
-                out, new_pid, rpm = pallas_pid.pid_dyn_ctrl_step(
-                    CF2X, cfg.drone, dyn, flat.ctrl_state,
-                    cfg.steps_per_ctrl, cfg.pyb_dt, cfg.ctrl_dt,
-                    tp, trpy, tv, trr)
-        else:
-            targets = jnp.concatenate([tp, trpy, tv, trr], axis=-1)
-            if want_obs12:
-                out, new_pid, rpm, obs12 = pallas_env.env_ctrl_step(
-                    CF2X, cfg.drone, cfg.physics, n, cfg.steps_per_ctrl,
-                    cfg.pyb_dt, cfg.ctrl_dt, cfg.obstacles, dyn,
-                    flat.ctrl_state, targets, flat.last_rpm, True)
-            else:
-                out, new_pid, rpm = pallas_env.env_ctrl_step(
-                    CF2X, cfg.drone, cfg.physics, n, cfg.steps_per_ctrl,
-                    cfg.pyb_dt, cfg.ctrl_dt, cfg.obstacles, dyn,
-                    flat.ctrl_state, targets, flat.last_rpm)
-        return flat._replace(
-            pos=out.pos, quat=out.quat, vel=out.vel,
-            rpy_rates=out.rpy_rates, ang_v=out.ang_v,
-            last_rpm=rpm, ctrl_state=new_pid), obs12
-
     def step_fn(flat: core.EnvState, action):
         action = jnp.asarray(action, flat.pos.dtype)
-        obs12 = None
-        if fused_pid:
-            flat, obs12 = _fused_pid_step(flat, action)
-        else:
-            rpm, flat = _pre(flat, action)
-            flat, obs12 = _physics(flat, rpm)
+        rpm, flat = _pre(flat, action)
+        flat = _physics(flat, rpm)
         # hooks see the PRE-increment counter (reference BaseAviary.py:376-382)
-        obs, reward, term, trunc = _post(flat, obs12)
+        obs, reward, term, trunc = _post(flat)
         flat = flat._replace(
             step_counter=flat.step_counter + cfg.steps_per_ctrl)
         if not autoreset:
@@ -379,11 +237,8 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
         return flat, _finalize_obs(obs), reward, term, trunc
 
     if mesh is not None:
-        # Pallas kernels are opaque to the GSPMD partitioner: under a pjit
-        # with sharded inputs they would force gathers (or fail) on a real
-        # multi-chip mesh.  The env step is embarrassingly parallel along
-        # the env axis, so wrap it in shard_map — each device runs the
-        # kernel on its local shard; no collectives are introduced.
+        # the env step is embarrassingly parallel along the env axis: each
+        # device steps its local shard, no collectives are introduced
         from jax import shard_map
         from jax.sharding import PartitionSpec
         spec = PartitionSpec(mesh.axis_names[0])
@@ -398,63 +253,127 @@ def make_batched_step(cfg: core.AviaryConfig, task, num_envs: int,
     return reset_fn, step_fn
 
 
+def _randomized_reset(task) -> bool:
+    return any(getattr(task, f, 0.0)
+               for f in ("reset_pos_noise", "reset_rpy_noise",
+                         "reset_vel_noise"))
+
+
+_FUSED_ACTIONS = (ActionType.RPM, ActionType.ONE_D_RPM, ActionType.PID,
+                  ActionType.VEL, ActionType.ONE_D_PID)
+
+
+def fused_ineligibility(cfg: core.AviaryConfig, task,
+                        dtype=jnp.float32) -> str | None:
+    """Why the fused kernel cannot step (cfg, task, dtype), or None.
+
+    The kernel covers float32, DYN physics, KIN observations, every action
+    type (PID-family actions carry the embedded DSL-PID state as 9 extra
+    rows per drone), and deterministic resets of a task implementing
+    `row_post`.
+    """
+    if cfg.physics != Physics.DYN:
+        return ("the fused kernel covers DYN physics only; the PYB family "
+                "runs on the XLA batched step")
+    if jnp.dtype(dtype) != jnp.float32:
+        return "the fused kernel computes in float32"
+    if getattr(task, "obs", None) != ObservationType.KIN:
+        return "the fused kernel requires KIN observations"
+    if getattr(task, "act", None) not in _FUSED_ACTIONS:
+        return f"the fused kernel does not support {task.act}"
+    if getattr(task, "row_post", None) is None:
+        return "task has no row_post hook"
+    if _randomized_reset(task):
+        return "the fused kernel requires deterministic resets"
+    return None
+
+
+# Most drones per env for which select_env_path picks the fused kernel:
+# where its longer compile is won back within a minute of stepping.  The
+# kernel unrolls every drone of an env into one thread, so its Triton
+# compile grows with the drone count.  On an H100 (scripts/bench_fused.py,
+# 4096 envs, PERF.md): 1-2 drones compile in 4-33 s and step 2.9-4.2x
+# faster than the XLA step (won back in under 40 s); 3-drone routing
+# compiles in 68 s for 2.3x (111 s), 4-drone routing in 146 s for 1.4x
+# (8 minutes).
+FUSED_MAX_DRONES = 2
+
+
+def _platform() -> str:
+    """Platform the next computation runs on: the default device's (which
+    `jax.default_device` sets), else the default backend's."""
+    dev = jax.config.jax_default_device
+    if isinstance(dev, str):
+        return dev
+    return dev.platform if dev is not None else jax.default_backend()
+
+
+def select_env_path(cfg: core.AviaryConfig, task, dtype=jnp.float32,
+                    interpret: bool = False) -> str:
+    """'fused' where the kernel is eligible, measured faster (at most
+    FUSED_MAX_DRONES drones per env) and can run, else 'batched'.
+
+    The kernel compiles only for the GPU; elsewhere it runs only in the
+    Pallas interpreter, which is taken only when the caller asks for it.
+    """
+    runnable = interpret or _platform() == "gpu"
+    if (runnable and cfg.num_drones <= FUSED_MAX_DRONES
+            and fused_ineligibility(cfg, task, dtype) is None):
+        return "fused"
+    return "batched"
+
+
+def make_env_step(cfg: core.AviaryConfig, task, num_envs: int,
+                  dtype=jnp.float32, mesh=None, obs_layout: str = "flat",
+                  interpret: bool = False):
+    """(path, reset_fn, step_fn) on the path `select_env_path` picks, with
+    auto-reset.  Both paths share the step signature of make_batched_step;
+    the fused path's state is an opaque packed carry."""
+    path = select_env_path(cfg, task, dtype, interpret)
+    if path == "fused":
+        reset_fn, step_fn = make_fused_rollout(
+            cfg, task, num_envs, mesh=mesh, obs_layout=obs_layout,
+            interpret=interpret)
+    else:
+        reset_fn, step_fn = make_batched_step(
+            cfg, task, num_envs, autoreset=True, dtype=dtype, mesh=mesh,
+            obs_layout=obs_layout)
+    return path, reset_fn, step_fn
+
+
 def make_fused_rollout(cfg: core.AviaryConfig, task, num_envs: int,
                        mesh=None, obs_layout: str = "flat",
-                       use_pallas: bool | None = None):
+                       interpret: bool = False):
     """Fully-fused rollout stepping: ONE Pallas launch and a ONE-buffer scan
     carry per control step (ops/pallas_fused.py) — physics, action buffer,
     task reward/termination, obs assembly, and auto-reset all in-kernel.
 
-    use_pallas: None (default) requires the TPU backend — on CPU, Pallas
-    interpret mode is orders of magnitude slower than the compiled XLA
-    fallback callers use instead; raises ValueError so callers fall back
-    (rl/ppo.py catches it).  The kernel-equivalence tests pass True to
-    exercise the fused kernel under interpretation.
-
     Returns (reset_fn, step_fn): reset_fn() -> (carry, obs);
     step_fn(carry, action (B, N, A)) -> (carry, obs, reward, term, trunc).
     The carry is an opaque (RC, Bp) f32 row block (lanes = envs, padded to
-    128); use make_batched_step for an inspectable EnvState carry.
+    whole kernel blocks); use make_batched_step for an inspectable EnvState
+    carry.
 
-    Eligibility (fallback is NOT automatic — raises ValueError):
-    float32, KIN observations, any action type (PID-family actions carry
-    the embedded DSL-PID state as 9 extra in-kernel rows per drone),
-    deterministic resets, a task implementing `row_post`.  DYN and all
-    PYB-family physics modes are supported (sphere/box obstacles included).
+    Raises ValueError for a configuration `fused_ineligibility` rejects.
+    The kernel compiles for the GPU; interpret=True runs it in the Pallas
+    interpreter on any backend (tests).  Under a mesh every shard must
+    hold a whole number of kernel blocks.
     """
     from gym_pybullet_drones_tpu.ops import pallas_fused
-    from gym_pybullet_drones_tpu.utils.enums import ObservationType
 
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if not use_pallas:
-        raise ValueError("fused rollout requires the TPU backend "
-                         "(pass use_pallas=True to force interpret mode)")
+    why = fused_ineligibility(cfg, task)
+    if why is not None:
+        raise ValueError(why)
+    if not interpret and _platform() != "gpu":
+        raise ValueError("the fused env-step kernel compiles only for the "
+                         "GPU; pass interpret=True to run it elsewhere")
+    if mesh is not None and num_envs % (pallas_fused.BLOCK * mesh.size):
+        raise ValueError(
+            f"fused rollout under a mesh needs num_envs divisible by "
+            f"{pallas_fused.BLOCK} * mesh.size (whole blocks per shard)")
     n = cfg.num_drones
     buf_len, act_dim = task.action_buffer_shape(cfg)
     buf_rows = buf_len * act_dim
-    if getattr(task, "obs", None) != ObservationType.KIN:
-        raise ValueError("fused rollout requires KIN observations")
-    if task.act not in (ActionType.RPM, ActionType.ONE_D_RPM,
-                        ActionType.PID, ActionType.VEL,
-                        ActionType.ONE_D_PID):
-        raise ValueError(f"fused rollout does not support {task.act} yet")
-    if getattr(task, "row_post", None) is None:
-        raise ValueError("task has no row_post hook")
-    from gym_pybullet_drones_tpu.ops.rigid_body import SOLVER_ITERATIONS
-    if cfg.physics != Physics.DYN and \
-            cfg.solver_iterations != SOLVER_ITERATIONS:
-        raise ValueError("fused rollout's PYB kernel unrolls exactly "
-                         f"{SOLVER_ITERATIONS} PGS sweeps; use the XLA "
-                         "path for other cfg.solver_iterations")
-    if any(getattr(task, f, 0.0) for f in
-           ("reset_pos_noise", "reset_rpy_noise", "reset_vel_noise")):
-        raise ValueError("fused rollout requires deterministic resets")
-    if mesh is not None and num_envs % (128 * mesh.size) != 0:
-        # carry lanes are envs: every shard must hold a whole number of
-        # 128-lane tiles or the action/carry shard contents diverge
-        raise ValueError("fused rollout under a mesh needs num_envs "
-                         "divisible by 128 * mesh.size")
 
     # single-env eager reset -> init scalars + packed initial carry
     s1, obs1, _ = jax.jit(lambda: core.reset(cfg, task))()
@@ -463,12 +382,12 @@ def make_fused_rollout(cfg: core.AviaryConfig, task, num_envs: int,
         [s1h.pos, s1h.quat, s1h.vel, s1h.rpy_rates, s1h.ang_v],
         axis=-1)                                       # (N, 16)
     init16 = tuple(tuple(float(v) for v in flat16_1[d]) for d in range(n))
-
-    n_extra = getattr(task, "n_extra_obs_rows", 0) \
-        if getattr(task, "row_extra_obs", None) is not None else 0
-    obs_dim = 12 + buf_rows + n_extra
-
+    obs_dim = pallas_fused.obs_rows_per_drone(task, buf_rows)
     bn = num_envs * n
+
+    def _layout_obs(obs):
+        return obs.reshape(obs.shape[0], n, obs_dim) \
+            if obs_layout == "drone" else obs
 
     def reset_fn(seed: int = 0):
         leaves = {
@@ -478,7 +397,6 @@ def make_fused_rollout(cfg: core.AviaryConfig, task, num_envs: int,
             "vel": np.zeros((bn, 3), np.float32),
             "rpy_rates": np.zeros((bn, 3), np.float32),
             "ang_v": np.zeros((bn, 3), np.float32),
-            "last_rpm": np.zeros((bn, 4), np.float32),
             "action_buffer": np.zeros((bn, buf_rows), np.float32),
             "pid": np.zeros((bn, 9), np.float32),
             "step_counter": np.zeros((num_envs,), np.float32),
@@ -486,29 +404,17 @@ def make_fused_rollout(cfg: core.AviaryConfig, task, num_envs: int,
         carry = pallas_fused.pack_carry(leaves, n, buf_rows, num_envs,
                                         task.act)
         obs0 = np.broadcast_to(
-            np.asarray(obs1).reshape(1, n * obs_dim),
+            np.asarray(obs1, np.float32).reshape(1, n * obs_dim),
             (num_envs, n * obs_dim))
-        obs0 = jnp.asarray(
-            obs0.reshape(num_envs, n, obs_dim) if obs_layout == "drone"
-            else obs0)
-        return carry, obs0
+        return carry, _layout_obs(jnp.asarray(obs0))
 
     def step_fn(carry, action):
-        b = action.shape[0]
-        bp = carry.shape[1]
-        # (B, N, A) -> (N*A, Bp) drone-major action rows
-        a_rows = jnp.transpose(
-            jnp.asarray(action, jnp.float32).reshape(b, n * act_dim))
-        a_rows = a_rows.reshape(n, act_dim, b).reshape(n * act_dim, b)
-        if bp != b:
-            a_rows = jnp.pad(a_rows, ((0, 0), (0, bp - b)))
-        carry, outs = pallas_fused.fused_env_step(
-            cfg.drone, task, cfg, n, cfg.steps_per_ctrl, cfg.pyb_dt,
-            task.act, act_dim, buf_rows, init16, carry, a_rows,
-            cfg.physics, cfg.obstacles)
-        obs, reward, term, trunc = pallas_fused.unpack_outs(
-            outs, n, buf_rows, n_extra, b, obs_layout)
-        return carry, obs, reward, term, trunc
+        a = jnp.asarray(action, jnp.float32).reshape(action.shape[0],
+                                                     n * act_dim)
+        carry, obs, flags = pallas_fused.fused_env_step(
+            cfg, task, init16, carry, a, interpret=interpret)
+        return (carry, _layout_obs(obs), flags[0], flags[1] > 0.5,
+                flags[2] > 0.5)
 
     if mesh is not None:
         from jax import shard_map

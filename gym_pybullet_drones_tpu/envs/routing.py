@@ -8,9 +8,9 @@ waypoint steps (exactly the reference's intermediate-waypoint rule), an
 embedded DSL-PID flies the waypoints, and the observation exposes both own
 kinematics and goal-relative/neighbor information.
 
-Scales to pod-size MARL fleets: the task is a frozen dataclass over the same
-functional core as Hover/MultiHover, so it vmaps over env batches and shards
-over a device mesh unchanged (see gym_pybullet_drones_tpu.parallel).
+The task is a frozen dataclass over the same functional core as
+Hover/MultiHover, so it vmaps over env batches and shards over a device mesh
+unchanged (see gym_pybullet_drones_tpu.parallel).
 """
 from __future__ import annotations
 
@@ -124,7 +124,7 @@ class RoutingTask(RLTask):
         timeout = (state.step_counter / cfg.pyb_freq) > self.episode_len_sec
         return tilted | timeout
 
-    # ---- flattened fast-path hooks (envs/fast.py) ----
+    # ---- flattened batched-step hooks (envs/fast.py) ----
 
     def flat_extra_obs(self, cfg, flat, num_envs, num_drones):
         b, n = num_envs, num_drones
@@ -134,9 +134,8 @@ class RoutingTask(RLTask):
         diff = pos[:, None, :, :] - pos[:, :, None, :]         # (B, n, i, 3)
         dist = jnp.linalg.norm(diff, axis=-1)
         dist = dist + jnp.eye(n, dtype=dist.dtype) * 1e9
-        # nearest-neighbor displacement via a one-hot masked sum: gathers
-        # (argmin + take_along_axis) serialize badly on the TPU vector
-        # unit, a one-hot contraction is a plain elementwise+reduce
+        # nearest-neighbor displacement via a one-hot masked sum (an
+        # elementwise + reduce in place of argmin + take_along_axis)
         is_min = (dist == jnp.min(dist, axis=-1, keepdims=True))
         # break ties toward the lowest index (sum would double-count)
         first = jnp.cumsum(is_min.astype(dist.dtype), axis=-1) <= 1.0

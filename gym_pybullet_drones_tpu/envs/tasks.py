@@ -69,15 +69,13 @@ class CtrlTask:
     def compute_truncated(self, cfg, state):
         return jnp.asarray(False)
 
-    def flat_post(self, cfg, flat: EnvState, num_envs: int, num_drones: int,
-                  obs12=None):
+    def flat_post(self, cfg, flat: EnvState, num_envs: int, num_drones: int):
         """Batched post-processing on the FLATTENED (B*N, k) state.
 
         Returns (obs (B*N, D) 2-D, reward (B,), term (B,), trunc (B,)) or None
         to make envs/fast.py fall back to the vmapped per-env methods.
         Semantics must match compute_obs/_reward/_terminated/_truncated
-        (cross-checked in tests/test_pallas.py).  `obs12` is the optional
-        kernel-emitted kinematic block (unused by this 20-dim obs task).
+        (cross-checked in tests/test_pallas.py).
         """
         b = num_envs
         obs = state_vector(flat)                      # (B*N, 20)
@@ -196,7 +194,7 @@ class RLTask:
     def _pid_targets(self, cfg, state: EnvState, action):
         """Embedded-PID setpoints (target pos/rpy/vel/rpy_rates), each
         (..., 3), for the PID-family action types.  Layout-independent;
-        also consumed by the fused Pallas PID kernel (envs/fast.py)."""
+        mirrored row-wise by the fused kernel (ops/pallas_fused.py)."""
         zeros = jnp.zeros_like(state.pos)
         if self.act == ActionType.PID:
             # waypoint step size: RoutingTask overrides via its step_size
@@ -259,24 +257,19 @@ class RLTask:
     def compute_truncated(self, cfg, state):
         return jnp.asarray(False)
 
-    # ---- flattened fast-path hooks (envs/fast.py) ----
-    # The vmapped per-env methods above materialize (B, N, k) intermediates
-    # whose trailing dims TPU pads to (8, 128) tiles; the flat hooks compute
-    # the same quantities on (B*N, k) arrays (one padded tile row per 8
-    # drones instead of per drone) and reduce over the drone axis via a
-    # cheap (B, N) reshape.  Equivalence is asserted in tests/test_pallas.py.
+    # ---- flattened batched-step hooks (envs/fast.py) ----
+    # The same quantities as the vmapped per-env methods above, computed on
+    # the flattened (B*N, k) carry of make_batched_step and reduced over the
+    # drone axis via a (B, N) reshape.  Equivalence is asserted in
+    # tests/test_pallas.py.
 
-    def flat_post(self, cfg, flat: EnvState, num_envs: int, num_drones: int,
-                  obs12=None):
+    def flat_post(self, cfg, flat: EnvState, num_envs: int, num_drones: int):
         if self.obs == ObservationType.RGB:
             return None  # renderer path: fall back to the vmapped methods
         b, n = num_envs, num_drones
-        if obs12 is None:
-            rpy = quat_ops.quat_to_rpy(flat.quat)              # (B*N, 3)
-            obs12 = jnp.concatenate(
-                [flat.pos, rpy, flat.vel, flat.ang_v], axis=-1)
-        else:
-            rpy = obs12[:, 3:6]  # kernel-emitted Euler block
+        rpy = quat_ops.quat_to_rpy(flat.quat)                  # (B*N, 3)
+        obs12 = jnp.concatenate(
+            [flat.pos, rpy, flat.vel, flat.ang_v], axis=-1)
         buf, adim = self.action_buffer_shape(cfg)
         hist = flat.action_buffer.reshape(b * n, buf * adim)
         cols = [obs12, hist]
@@ -408,9 +401,8 @@ class MultiHoverTask(RLTask):
         out = (jnp.abs(flat.pos[:, 0]) > 2.0) | \
               (jnp.abs(flat.pos[:, 1]) > 2.0) | (flat.pos[:, 2] > 2.0) | \
               (jnp.abs(rpy[:, 0]) > 0.4) | (jnp.abs(rpy[:, 1]) > 0.4)
-        # one fused (B*N, 3) -> (B, 3) drone-axis reduction: the
-        # (B*N,) -> (B, N) relayout is a TPU lane shuffle, so pay it once
-        # for [reward, dist, out] together instead of three times
+        # one (B*N, 3) -> (B, 3) drone-axis reduction for
+        # [reward, dist, out] together
         per = jnp.stack([jnp.maximum(0.0, 2.0 - d ** 4), d,
                          out.astype(d.dtype)], axis=-1)        # (B*N, 3)
         red = jnp.sum(per.reshape(b, n, 3), axis=1)            # (B, 3)
@@ -426,7 +418,7 @@ class MultiHoverTask(RLTask):
         truncation as row math (cross-drone reductions are row adds)."""
         import numpy as _np
         # numpy replica of cfg.default_init_xyzs (jnp ops would be traced
-        # into the pallas kernel instead of folding to python scalars)
+        # into the kernel instead of folding to python scalars)
         if cfg.init_xyzs is not None:
             init = _np.asarray(cfg.init_xyzs, _np.float32)
         else:

@@ -1,4 +1,4 @@
-"""Neural network models (Flax)."""
+"""Neural network models (plain JAX: init/apply on parameter pytrees)."""
 from gym_pybullet_drones_tpu.models.mlp import (  # noqa: F401
     ActorCritic,
     gaussian_entropy,

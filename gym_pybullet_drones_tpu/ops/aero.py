@@ -25,8 +25,13 @@ Each function returns (world_force, world_torque) increments about the CoM.
 from __future__ import annotations
 
 import jax.numpy as jnp
+from jax.lax import Precision
 
 from gym_pybullet_drones_tpu.params import DroneParams
+
+# physics contractions run in full float32 on every backend (the GPU's
+# default would allow TF32 for float32 dots)
+HIGHEST = Precision.HIGHEST
 
 
 def prop_positions(params: DroneParams, pos: jnp.ndarray,
@@ -39,7 +44,7 @@ def prop_positions(params: DroneParams, pos: jnp.ndarray,
     Shapes: pos (..., 3), rot (..., 3, 3) -> (..., 4, 3).
     """
     offsets = jnp.asarray(params.prop_offsets, dtype=pos.dtype)  # (4, 3)
-    world_off = jnp.einsum("...ij,pj->...pi", rot, offsets)
+    world_off = jnp.einsum("...ij,pj->...pi", rot, offsets, precision=HIGHEST)
     return pos[..., None, :] + world_off
 
 
@@ -52,7 +57,8 @@ def ground_effect(params: DroneParams, rpm: jnp.ndarray, pos: jnp.ndarray,
     """
     dtype = pos.dtype
     offsets = jnp.asarray(params.prop_offsets, dtype=dtype)       # (4, 3)
-    world_off = jnp.einsum("...ij,pj->...pi", rot, offsets)       # (..., 4, 3)
+    world_off = jnp.einsum("...ij,pj->...pi", rot, offsets,
+                           precision=HIGHEST)                 # (..., 4, 3)
     heights = pos[..., None, 2] + world_off[..., 2]               # (..., 4)
     heights = jnp.clip(heights, params.gnd_eff_h_clip, jnp.inf)
     gnd = (rpm * rpm) * params.kf * params.gnd_eff_coeff * \
@@ -81,8 +87,10 @@ def drag(params: DroneParams, last_rpm: jnp.ndarray, vel: jnp.ndarray,
     coeff = jnp.asarray(params.drag_coeff, dtype=dtype)
     omega_sum = jnp.sum(2 * jnp.pi * last_rpm / 60.0, axis=-1)    # (...,)
     drag_world_pre = -coeff * omega_sum[..., None] * vel          # (..., 3)
-    drag_body = jnp.einsum("...ji,...j->...i", rot, drag_world_pre)  # R^T x
-    force = jnp.einsum("...ij,...j->...i", rot, drag_body)        # R x
+    drag_body = jnp.einsum("...ji,...j->...i", rot, drag_world_pre,
+                           precision=HIGHEST)                 # R^T x
+    force = jnp.einsum("...ij,...j->...i", rot, drag_body,
+                       precision=HIGHEST)                     # R x
     return force, jnp.zeros_like(force)
 
 

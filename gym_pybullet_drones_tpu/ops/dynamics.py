@@ -27,10 +27,15 @@ import math
 from typing import NamedTuple
 
 import jax.numpy as jnp
+from jax.lax import Precision
 
 from gym_pybullet_drones_tpu.params import DroneParams
 from gym_pybullet_drones_tpu.utils.enums import DroneModel
 from gym_pybullet_drones_tpu.ops import quat as quat_ops
+
+# physics contractions run in full float32 on every backend (the GPU's
+# default would allow TF32 for float32 dots)
+HIGHEST = Precision.HIGHEST
 
 
 class DynState(NamedTuple):
@@ -134,6 +139,7 @@ def dyn_step(params: DroneParams, state: DynState, rpm: jnp.ndarray,
     new_quat = quat_ops.integrate_quat(state.quat, rpy_rates, dt)
     # Stored world angular velocity uses the PRE-step rotation (reference
     # BaseAviary.py:868-872 reuses `rotation` computed from the old quat).
-    ang_v = jnp.einsum("...ij,...j->...i", rotation, rpy_rates)
+    ang_v = jnp.einsum("...ij,...j->...i", rotation, rpy_rates,
+                       precision=HIGHEST)
     return DynState(pos=pos, quat=new_quat, vel=vel, rpy_rates=rpy_rates,
                     ang_v=ang_v)

@@ -1,32 +1,36 @@
-"""Pallas TPU kernel: the WHOLE env step fused — physics, action buffer,
-task reward/termination, observation assembly, and auto-reset — with the
-scan carry held as ONE packed row block.
+"""Pallas kernel (Triton route): the WHOLE env step in one launch — DYN
+physics, action mapping (embedded DSL-PID included), action buffer, task
+reward/termination, observation assembly and auto-reset — with the scan
+carry held as ONE packed row block.
 
-Motivation (measured, see SCALING.md): a lax.scan pays a fixed ~1.4 us per
-carried buffer per iteration on TPU (buffer materialization + fusion
-launch), so the ~10-leaf EnvState carry costs ~15 us/step before any
-physics runs, and the auto-reset `where` tree costs another ~16 us for
-multi-drone tasks.  This kernel collapses the entire step to TWO buffers
-(carry block in, carry block + outputs block out):
-
-    carry (RC, B):  per drone [pos3 quat4 vel3 rpy_rates3 ang_v3]
-                    [last_rpm4] [action-history BUF*A rows]
+    carry (RC, Bp): per drone [pos3 quat4 vel3 rpy_rates3 ang_v3]
+                    [embedded-PID 9, PID-family actions only]
+                    [action-history BUF*A rows]
                     then one global step-counter row (f32)
-    outs  (RO, B):  per drone [obs12 + history + task extras] rows,
-                    then reward / terminated / truncated rows
 
-Layout is envs-in-lanes / drone-components-in-rows (drone-major row
-blocks, like ops/pallas_env.py), so cross-drone task reductions (summed
-rewards, any-drone truncation, pairwise separation) are plain row
-arithmetic — no lane shuffles.  Auto-reset is a row-wise select against
-the reset state embedded as compile-time scalars (deterministic resets
-only; randomized-reset tasks stay on the envs/fast.py path).
+Envs are lanes and state components are rows.  One program handles a
+block of BLOCK env lanes: each carry row is loaded once as a 1-D lane
+vector, every substep, the embedded PID, reward, termination, observation
+and auto-reset stay in registers, and each row is stored once.  Envs are
+independent and cross-drone terms (summed rewards, pairwise separation,
+nearest neighbours) are row arithmetic inside a lane, so nothing crosses
+lanes: no shared memory, no barriers.
+
+Only the DYN physics mode is covered: the PYB-family modes (coupled
+contact solver) made a kernel that Triton did not finish compiling in 18
+minutes on an H100 (PERF.md), so they run on the XLA batched step.
+
+Actions are read and observations written in the learner's env-major
+layout ((B, N*A) in, (B, N*D) out) with masked strided accesses, so the
+step needs no transposes or padding around the kernel; only the carry is
+padded to whole blocks (pack_carry).  Auto-reset is a row-wise select
+against the reset state embedded as compile-time scalars (deterministic
+resets only).
 
 Tasks opt in by implementing `row_post(cfg, drones, sc_row)` (and
 optionally `row_extra_obs(cfg, drones)`) — see envs/tasks.py.
-
 Semantics match envs/fast.make_batched_step with autoreset=True for
-eligible configs; equivalence is asserted in tests/test_pallas.py.
+eligible configs; equivalence is asserted in tests/test_fused.py.
 """
 from __future__ import annotations
 
@@ -36,51 +40,67 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-from gym_pybullet_drones_tpu.params import DroneParams
-from gym_pybullet_drones_tpu.utils.enums import ActionType, Physics
-from gym_pybullet_drones_tpu.ops import (pallas_dyn, pallas_env, pallas_math,
-                                         pallas_pid)
+from gym_pybullet_drones_tpu.params import CF2X
+from gym_pybullet_drones_tpu.utils.enums import ActionType
+from gym_pybullet_drones_tpu.ops import rows
 
-LANE = 128
+# env lanes per program (a power of two) and warps per program, the best
+# of 512/256/128/64/32 lanes measured on an H100 at 4096 envs (PERF.md):
+# smaller programs spread the step over more SMs, and one lane per thread
+# keeps every row in registers
+BLOCK = 32
+NUM_WARPS = 1
 S = 16    # state rows per drone
-LR = 4    # last-rpm rows per drone
 PR = 9    # embedded-PID carry rows per drone (PID-family actions only)
 
 PID_FAMILY = (ActionType.PID, ActionType.VEL, ActionType.ONE_D_PID)
 
 
+def padded_lanes(b: int) -> int:
+    """Carry lanes for b envs: whole blocks."""
+    return -(-b // BLOCK) * BLOCK
+
+
 def _layout(n: int, buf_rows: int, act: ActionType = ActionType.RPM):
     pid = PR if act in PID_FAMILY else 0
-    per_drone = S + LR + pid + buf_rows
+    per_drone = S + pid + buf_rows
     rc = n * per_drone + 1          # + step-counter row
     return per_drone, rc
 
 
-def _kernel(params: DroneParams, task, cfg, n: int, n_substeps: int,
-            pyb_dt: float, act: ActionType, act_dim: int, buf_rows: int,
-            init16, physics: Physics, obstacles,
-            c_ref, a_ref, oc_ref, oo_ref):
+def obs_rows_per_drone(task, buf_rows: int) -> int:
+    n_extra = (task.n_extra_obs_rows
+               if getattr(task, "row_extra_obs", None) is not None else 0)
+    return 12 + buf_rows + n_extra
+
+
+def _kernel(cfg, task, init16, b: int, c_ref, a_ref, oc_ref, oo_ref, of_ref):
+    n = cfg.num_drones
+    params = cfg.drone
+    n_substeps = cfg.steps_per_ctrl
+    act = task.act
+    buf_len, act_dim = task.action_buffer_shape(cfg)
+    buf_rows = buf_len * act_dim
     per_drone, _ = _layout(n, buf_rows, act)
     hover = params.hover_rpm
     has_pid = act in PID_FAMILY
-    pid_off = S + LR
-    buf_off = S + LR + (PR if has_pid else 0)
-    ctrl_dt = pyb_dt * n_substeps
+    pid_off = S
+    buf_off = S + (PR if has_pid else 0)
+
+    lane = pl.program_id(0) * BLOCK + jnp.arange(BLOCK)
+    valid = lane < b        # the carry is padded, actions and outputs not
 
     # ---- load + action mapping + buffer shift + physics ----
     stepped = []     # per drone: 16 new state rows
     new_bufs = []    # per drone: buf_rows rows (post-push)
     new_pids = []    # per drone: 9 rows (PID-family actions)
-    rpms = []
     for d in range(n):
         base = d * per_drone
-        st = [c_ref[base + k:base + k + 1, :] for k in range(S)]
-        lr = [c_ref[base + S + k:base + S + k + 1, :] for k in range(LR)]
-        buf = [c_ref[base + buf_off + k:base + buf_off + k + 1, :]
-               for k in range(buf_rows)]
-        a = [a_ref[d * act_dim + k:d * act_dim + k + 1, :]
+        st = [c_ref[base + k, :] for k in range(S)]
+        buf = [c_ref[base + buf_off + k, :] for k in range(buf_rows)]
+        a = [plt.load(a_ref.at[:, d * act_dim + k], mask=valid, other=0.0)
              for k in range(act_dim)]
         if act == ActionType.RPM:
             rpm = [hover * (1.0 + 0.05 * ai) for ai in a]
@@ -90,7 +110,6 @@ def _kernel(params: DroneParams, task, cfg, n: int, n_substeps: int,
             # embedded DSL-PID tick (always CF2X, QUIRKS.md #2 /
             # reference BaseRLAviary.py:76); setpoints per
             # tasks.RLTask._pid_targets
-            from gym_pybullet_drones_tpu.params import CF2X
             p, q = st[0:3], st[3:7]
             zero = p[0] * 0.0
             if act == ActionType.PID:
@@ -121,200 +140,129 @@ def _kernel(params: DroneParams, task, cfg, n: int, n_substeps: int,
                                 1.0 / jnp.where(norm > 0.0, norm, 1.0),
                                 0.0)
                 mag = cfg.drone.speed_limit * jnp.abs(sf) * inv
-                _, _, yaw = pallas_math.quat_rpy_rows(*q)
+                _, _, yaw = rows.quat_rpy_rows(*q)
                 tgt = (list(p) + [zero, zero, yaw]
                        + [mag * vx, mag * vy, mag * vz] + [zero] * 3)
             else:  # ONE_D_PID
                 tgt = [p[0], p[1], p[2] + 0.1 * a[0]] + [zero] * 9
-            pid_rows = [c_ref[base + pid_off + k:base + pid_off + k + 1, :]
-                        for k in range(PR)]
-            rpm, new_pid = pallas_pid._pid_tick(CF2X, ctrl_dt, st,
-                                                pid_rows, tgt)
+            pid_rows = [c_ref[base + pid_off + k, :] for k in range(PR)]
+            rpm, new_pid = rows._pid_tick(CF2X, cfg.ctrl_dt, st,
+                                          pid_rows, tgt)
             new_pids.append(new_pid)
         else:
             raise NotImplementedError(act)
-        rpms.append(rpm)
         # history ring: oldest first (reference BaseRLAviary.py:66-67)
         new_bufs.append(buf[act_dim:] + a if buf_rows else [])
-        if physics == Physics.DYN:
-            thrust, xt, yt, zt = pallas_dyn._motor_mix(params, *rpm)
-            out16 = list(pallas_dyn._dyn_substeps(
-                params, n_substeps, pyb_dt, tuple(st[:13]),
-                thrust, xt, yt, zt))
-            stepped.append(out16)
-        else:
-            stepped.append(
-                {"st": st, "lr": lr})  # PYB family: coupled, handled below
-
-    if physics != Physics.DYN:
-        drones = [{"p": list(s["st"][0:3]), "q": list(s["st"][3:7]),
-                   "v": list(s["st"][7:10]), "w": list(s["st"][13:16])}
-                  for s in stepped]
-        for step_i in range(n_substeps):
-            drag_rpm = ([s["lr"] for s in stepped]
-                        if step_i == 0 else rpms)
-            pallas_env._pyb_substep_all(params, physics, pyb_dt, obstacles,
-                                        drones, rpms, drag_rpm)
-        stepped = [dr["p"] + dr["q"] + dr["v"]
-                   + list(s["st"][10:13]) + dr["w"]
-                   for dr, s in zip(drones, stepped)]
+        thrust, xt, yt, zt = rows._motor_mix(params, *rpm)
+        stepped.append(list(rows._dyn_substeps(
+            params, n_substeps, cfg.pyb_dt, tuple(st[:13]),
+            thrust, xt, yt, zt)))
 
     # ---- task post on the stepped rows ----
-    sc_row = c_ref[n * per_drone:n * per_drone + 1, :]
-    sc_new = sc_row + float(n_substeps)
-    dinfo = []
-    for d in range(n):
-        o = stepped[d]
-        roll, pitch, yaw = pallas_math.quat_rpy_rows(*o[3:7])
-        dinfo.append({"p": o[0:3], "rpy": (roll, pitch, yaw),
-                      "v": o[7:10], "w": o[13:16]})
+    def info(state16):
+        return {"p": state16[0:3], "rpy": rows.quat_rpy_rows(*state16[3:7]),
+                "v": state16[7:10], "w": state16[13:16]}
+
+    sc_row = c_ref[n * per_drone, :]
     # row_post sees the PRE-increment substep counter: the reference advances
     # step_counter only after the termination hooks (BaseAviary.py:376-382)
-    reward, term, trunc = task.row_post(cfg, dinfo, sc_row)
+    reward, term, trunc = task.row_post(
+        cfg, [info(stepped[d]) for d in range(n)], sc_row)
     done = term | trunc
 
-    # ---- auto-reset select + write carry ----
+    # ---- auto-reset select, carry store ----
+    sel = [[jnp.where(done, init16[d][k], stepped[d][k]) for k in range(S)]
+           for d in range(n)]
+    sel_bufs = [[jnp.where(done, 0.0, row) for row in new_bufs[d]]
+                for d in range(n)]
     for d in range(n):
         base = d * per_drone
         for k in range(S):
-            oc_ref[base + k:base + k + 1, :] = jnp.where(
-                done, init16[d][k], stepped[d][k])
-        for k in range(LR):
-            oc_ref[base + S + k:base + S + k + 1, :] = jnp.where(
-                done, 0.0, rpms[d][k])
+            oc_ref[base + k, :] = sel[d][k]
         if has_pid:
             for k in range(PR):
-                oc_ref[base + pid_off + k:base + pid_off + k + 1, :] = \
-                    jnp.where(done, 0.0, new_pids[d][k])
+                oc_ref[base + pid_off + k, :] = jnp.where(
+                    done, 0.0, new_pids[d][k])
         for k in range(buf_rows):
-            oc_ref[base + buf_off + k:base + buf_off + k + 1, :] = jnp.where(
-                done, 0.0, new_bufs[d][k])
-    oc_ref[n * per_drone:n * per_drone + 1, :] = jnp.where(
-        done, 0.0, sc_new)
+            oc_ref[base + buf_off + k, :] = sel_bufs[d][k]
+    oc_ref[n * per_drone, :] = jnp.where(done, 0.0,
+                                         sc_row + float(n_substeps))
 
-    # ---- observation rows from the SELECTED (post-reset) state ----
+    # ---- observation columns from the SELECTED (post-reset) state ----
+    sel_info = [info(sel[d]) for d in range(n)]
     extra_fn = getattr(task, "row_extra_obs", None)
-    sel_dinfo = []
-    obs_rows_per = 12 + buf_rows
+    extras = extra_fn(cfg, sel_info) if extra_fn is not None else None
+    obs_per = obs_rows_per_drone(task, buf_rows)
     for d in range(n):
-        base = d * per_drone
-        sel = [oc_ref[base + k:base + k + 1, :] for k in range(S)]
-        roll, pitch, yaw = pallas_math.quat_rpy_rows(*sel[3:7])
-        sel_dinfo.append({"p": sel[0:3], "rpy": (roll, pitch, yaw),
-                          "v": sel[7:10], "w": sel[13:16]})
-    extras = extra_fn(cfg, sel_dinfo) if extra_fn is not None else None
-    if extras is not None:
-        obs_rows_per += len(extras[0])
-    for d in range(n):
-        base = d * per_drone
-        ob = d * obs_rows_per
-        di = sel_dinfo[d]
-        rows12 = di["p"] + list(di["rpy"]) + di["v"] + di["w"]
-        for k, row in enumerate(rows12):
-            oo_ref[ob + k:ob + k + 1, :] = row
-        for k in range(buf_rows):
-            oo_ref[ob + 12 + k:ob + 12 + k + 1, :] = \
-                oc_ref[base + buf_off + k:base + buf_off + k + 1, :]
-        if extras is not None:
-            for k, row in enumerate(extras[d]):
-                oo_ref[ob + 12 + buf_rows + k:
-                       ob + 12 + buf_rows + k + 1, :] = row
-    ro = n * obs_rows_per
-    oo_ref[ro:ro + 1, :] = reward
-    oo_ref[ro + 1:ro + 2, :] = term.astype(reward.dtype)
-    oo_ref[ro + 2:ro + 3, :] = trunc.astype(reward.dtype)
+        di = sel_info[d]
+        cols = (di["p"] + list(di["rpy"]) + di["v"] + di["w"] + sel_bufs[d]
+                + (list(extras[d]) if extras is not None else []))
+        for k, col in enumerate(cols):
+            plt.store(oo_ref.at[:, d * obs_per + k], col, mask=valid)
+    plt.store(of_ref.at[0, :], reward, mask=valid)
+    plt.store(of_ref.at[1, :], term.astype(reward.dtype), mask=valid)
+    plt.store(of_ref.at[2, :], trunc.astype(reward.dtype), mask=valid)
 
 
-@functools.partial(jax.jit, static_argnums=(0, 1, 2, 3, 4, 5, 6, 7, 8, 9,
-                                            12, 13))
-def fused_env_step(params: DroneParams, task, cfg, n: int, n_substeps: int,
-                   pyb_dt: float, act: ActionType, act_dim: int,
-                   buf_rows: int, init16_tuple, carry, action_rows,
-                   physics: Physics = Physics.DYN, obstacles: tuple = ()):
+def fused_env_step(cfg, task, init16, carry, actions, interpret=False):
     """One fully-fused control step.
 
-    carry: (RC, Bp) f32 row block (see module docstring; Bp % 128 == 0);
-    action_rows: (n*act_dim, Bp).  Returns (carry', outs (RO, Bp)).
+    carry: (RC, Bp) f32 row block (see module docstring; Bp whole blocks);
+    actions: (B, N*A) env-major.  Returns (carry', obs (B, N*D),
+    flags (3, B) = reward / terminated / truncated rows).
+    interpret=True runs the kernel in the Pallas interpreter (CPU tests);
+    otherwise it compiles through Triton, which needs a GPU.
     """
-    per_drone, rc = _layout(n, buf_rows, act)
-    assert carry.shape[0] == rc, (carry.shape, rc)
+    n = cfg.num_drones
+    buf_len, act_dim = task.action_buffer_shape(cfg)
+    buf_rows = buf_len * act_dim
+    _, rc = _layout(n, buf_rows, task.act)
+    b = actions.shape[0]
     bp = carry.shape[1]
-    extra_fn = getattr(task, "row_extra_obs", None)
-    n_extra = task.n_extra_obs_rows if extra_fn is not None else 0
-    obs_rows_per = 12 + buf_rows + n_extra
-    ro = n * obs_rows_per + 3
-
-    init16 = [[float(v) for v in row16] for row16 in init16_tuple]
-    total_rows = rc * 2 + n * act_dim + ro
-    block = min(bp, 2048)
-    while block > LANE and total_rows * block * 4 > 6 * 2 ** 20:
-        block //= 2
-    if bp % block:
-        block = LANE
-    interpret = jax.default_backend() != "tpu"
-    carry_out, outs = pl.pallas_call(
-        functools.partial(_kernel, params, task, cfg, n, n_substeps,
-                          pyb_dt, act, act_dim, buf_rows, init16,
-                          physics, obstacles),
+    if carry.shape != (rc, padded_lanes(b)):
+        raise ValueError(f"carry {carry.shape} does not fit {b} envs "
+                         f"({rc} rows, whole blocks of {BLOCK} lanes)")
+    obs_w = n * obs_rows_per_drone(task, buf_rows)
+    lanes = lambda r: pl.BlockSpec((r, BLOCK), lambda i: (0, i))
+    env_major = lambda w: pl.BlockSpec((BLOCK, w), lambda i: (i, 0))
+    return pl.pallas_call(
+        functools.partial(_kernel, cfg, task, init16, b),
+        out_shape=[jax.ShapeDtypeStruct((rc, bp), jnp.float32),
+                   jax.ShapeDtypeStruct((b, obs_w), jnp.float32),
+                   jax.ShapeDtypeStruct((3, b), jnp.float32)],
+        grid=(bp // BLOCK,),
+        in_specs=[lanes(rc), env_major(n * act_dim)],
+        out_specs=[lanes(rc), env_major(obs_w), lanes(3)],
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=1),
         interpret=interpret,
-        out_shape=[jax.ShapeDtypeStruct((rc, bp), carry.dtype),
-                   jax.ShapeDtypeStruct((ro, bp), carry.dtype)],
-        grid=(bp // block,),
-        in_specs=[pl.BlockSpec((rc, block), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-                  pl.BlockSpec((n * act_dim, block), lambda i: (0, i),
-                               memory_space=pltpu.VMEM)],
-        out_specs=[pl.BlockSpec((rc, block), lambda i: (0, i),
-                                memory_space=pltpu.VMEM),
-                   pl.BlockSpec((ro, block), lambda i: (0, i),
-                                memory_space=pltpu.VMEM)],
-    )(carry, action_rows)
-    return carry_out, outs
+        name="fused_env_step",
+    )(carry, actions)
 
 
 def pack_carry(state_leaves, n: int, buf_rows: int, b: int,
                act: ActionType = ActionType.RPM):
     """numpy EnvState-like leaves (flattened (B*N, k), env-major) ->
-    (RC, Bp) drone-major row block."""
+    (RC, Bp) drone-major row block, padded to whole blocks."""
     per_drone, rc = _layout(n, buf_rows, act)
     has_pid = act in PID_FAMILY
-    buf_off = S + LR + (PR if has_pid else 0)
-    pad = (-b) % LANE
-    bp = b + pad
-    blk = np.zeros((rc, bp), np.float32)
+    buf_off = S + (PR if has_pid else 0)
+    blk = np.zeros((rc, padded_lanes(b)), np.float32)
     flat16 = np.concatenate(
         [state_leaves["pos"], state_leaves["quat"], state_leaves["vel"],
          state_leaves["rpy_rates"], state_leaves["ang_v"]], axis=-1)
-    lrpm = state_leaves["last_rpm"]
     buf = state_leaves["action_buffer"]            # (B*N, BUF*A)
     pid = state_leaves.get("pid")                  # (B*N, 9) or None
+    # padding lanes get a valid unit quaternion so their math stays finite
     for d in range(n):
-        rows = flat16[d::n].T                      # (16, B) env-major slice
         base = d * per_drone
-        blk[base:base + S, :b] = rows
-        blk[base + S:base + S + LR, :b] = lrpm[d::n].T
+        blk[base + 6, b:] = 1.0
+        blk[base:base + S, :b] = flat16[d::n].T    # (16, B) env-major slice
         if has_pid and pid is not None:
-            blk[base + S + LR:base + S + LR + PR, :b] = pid[d::n].T
+            blk[base + S:base + S + PR, :b] = pid[d::n].T
         if buf_rows:
             blk[base + buf_off:base + buf_off + buf_rows, :b] = buf[d::n].T
     blk[n * per_drone, :b] = np.asarray(
         state_leaves["step_counter"], np.float32)
     return jnp.asarray(blk)
-
-
-def unpack_outs(outs, n: int, buf_rows: int, n_extra: int, b: int,
-                obs_layout: str = "flat"):
-    """(RO, Bp) outputs -> (obs, reward (B,), term (B,) bool, trunc)."""
-    obs_rows_per = 12 + buf_rows + n_extra
-    ro = n * obs_rows_per
-    obs_rows = outs[:ro, :b]                       # (n*D, B)
-    if obs_layout == "rows":
-        obs = obs_rows
-    else:
-        obs = obs_rows.T.reshape(b, n * obs_rows_per)   # (B, N*D)
-        if obs_layout == "drone":
-            obs = obs.reshape(b, n, obs_rows_per)
-    reward = outs[ro, :b]
-    term = outs[ro + 1, :b] > 0.5
-    trunc = outs[ro + 2, :b] > 0.5
-    return obs, reward, term, trunc

@@ -106,14 +106,10 @@ def render(params: DroneParams, scene: Scene, cam_pos, cam_rot,
     Returns (rgb (..., H, W, 4) in [0, 255], depth (..., H, W) buffer values,
     seg (..., H, W) int32).
 
-    Layout note (TPU): all per-pixel state is kept pixel-major — component
-    arrays of shape (..., H*W) with the flattened pixel index minormost, so
-    every elementwise op fills the (8, 128) vector registers.  The earlier
-    (..., H, W, S, 3)-shaped formulation padded its size-3/size-S trailing
-    axes to full tiles and gathered hits with take_along_axis; this
-    unrolled running-min form is ~250x faster for the 48x64 landmark scene
-    at batch 256 (measured 1.9k -> 0.50M env-steps/s on the benchmark chip,
-    assumed v5e; BENCH_ALL artifact + SCALING.md).
+    Layout note: all per-pixel state is kept pixel-major — component
+    arrays of shape (..., H*W) with the flattened pixel index minormost,
+    and hits are an unrolled running minimum over the scene's shapes, with
+    no gather.
     """
     dtype = cam_pos.dtype
     near = params.l

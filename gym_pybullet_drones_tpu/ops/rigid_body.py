@@ -54,6 +54,7 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+from jax.lax import Precision
 
 from gym_pybullet_drones_tpu.params import DroneParams
 from gym_pybullet_drones_tpu.ops import quat as quat_ops
@@ -71,6 +72,10 @@ CONTACT_SLOP = 0.02       # speculative-contact window (Bullet's
 #                           closing-velocity limit gap/dt, so approaches
 #                           stop AT the surface instead of penetrating
 #                           deep and taking a Baumgarte kick back out
+
+# physics contractions run in full float32 on every backend (the GPU's
+# default would allow TF32 for float32 dots)
+HIGHEST = Precision.HIGHEST
 
 
 class PybState(NamedTuple):
@@ -130,7 +135,8 @@ def _ground_manifold(params: DroneParams, pos, rot, dtype):
                        [0.0, rc, zoff - h2],
                        [-rc, 0.0, zoff - h2],
                        [0.0, -rc, zoff - h2]], dtype)          # (4, 3)
-    arms = jnp.einsum("...ij,kj->...ki", rot, rim)             # (..., 4, 3)
+    arms = jnp.einsum("...ij,kj->...ki", rot, rim,
+                      precision=HIGHEST)                      # (..., 4, 3)
     pen = -(pos[..., None, 2] + arms[..., 2])                  # (..., 4)
     return arms, pen
 
@@ -159,10 +165,11 @@ def _solve_contacts(params: DroneParams, rot, vel, ang_v, arms, pen,
     # world inverse inertia as an explicit matrix, R diag(J^-1) R^T
     # (the contact-shim computes the same matrix), applied as one matvec
     # per impulse — smaller traced graph than re-rotating per application
-    i_inv = jnp.einsum("...ik,k,...jk->...ij", rot, j_inv_diag, rot)
+    i_inv = jnp.einsum("...ik,k,...jk->...ij", rot, j_inv_diag, rot,
+                       precision=HIGHEST)
 
     def iinv(v):
-        return jnp.einsum("...ij,...j->...i", i_inv, v)
+        return jnp.einsum("...ij,...j->...i", i_inv, v, precision=HIGHEST)
 
     beta = jnp.asarray(CONTACT_ERP / dt, dtype)
     inv_dt = jnp.asarray(1.0 / dt, dtype)
@@ -177,7 +184,8 @@ def _solve_contacts(params: DroneParams, rot, vel, ang_v, arms, pen,
     def keff(d):
         rxd = jnp.cross(arms, d)
         return inv_m + jnp.sum(jnp.cross(
-            jnp.einsum("...ij,...kj->...ki", i_inv, rxd), arms) * d,
+            jnp.einsum("...ij,...kj->...ki", i_inv, rxd, precision=HIGHEST),
+            arms) * d,
             axis=-1)
     kn, kt1, kt2 = keff(n), keff(t1), keff(t2)
 
@@ -302,7 +310,7 @@ def pyb_step(params: DroneParams, state: PybState, rpm: jnp.ndarray,
         tau_y = _paired_prop_torque(
             params, rpm, [-o[0] for o in params.prop_offsets])
         tau_body = jnp.stack([tau_x, tau_y, z_torque], axis=-1)
-    torque_w = jnp.einsum("...ij,...j->...i", rot, tau_body)
+    torque_w = jnp.einsum("...ij,...j->...i", rot, tau_body, precision=HIGHEST)
 
     if ext_force is not None:
         force_w = force_w + ext_force
@@ -316,11 +324,13 @@ def pyb_step(params: DroneParams, state: PybState, rpm: jnp.ndarray,
     vel = state.vel + dt * acc
     j_diag = jnp.asarray([params.ixx, params.iyy, params.izz], dtype=dtype)
     j_inv = 1.0 / j_diag
-    tau_b = jnp.einsum("...ji,...j->...i", rot, torque_w)         # R^T tau
-    w_b = jnp.einsum("...ji,...j->...i", rot, state.ang_v)
+    tau_b = jnp.einsum("...ji,...j->...i", rot, torque_w,
+                       precision=HIGHEST)                     # R^T tau
+    w_b = jnp.einsum("...ji,...j->...i", rot, state.ang_v, precision=HIGHEST)
     tau_b = tau_b - jnp.cross(w_b, j_diag * w_b)
     dw_b = j_inv * tau_b
-    ang_v = state.ang_v + dt * jnp.einsum("...ij,...j->...i", rot, dw_b)
+    ang_v = state.ang_v + dt * jnp.einsum("...ij,...j->...i", rot, dw_b,
+                                          precision=HIGHEST)
 
     # Bullet-style damping (applied after velocity integration)
     vel = vel * (1.0 - LINEAR_DAMPING) ** dt
@@ -443,7 +453,8 @@ def resolve_drone_collisions(params: DroneParams, pos: jnp.ndarray,
     inv_m = 1.0 / params.m
     j_inv_diag = jnp.asarray(
         [1.0 / params.ixx, 1.0 / params.iyy, 1.0 / params.izz], dtype)
-    i_inv = jnp.einsum("...ik,k,...jk->...ij", rot, j_inv_diag, rot)
+    i_inv = jnp.einsum("...ik,k,...jk->...ij", rot, j_inv_diag, rot,
+                       precision=HIGHEST)
 
     # contact point: midpoint of the two cylinder-clamped closest points
     rc, h2 = params.collision_r, params.collision_h / 2
@@ -458,12 +469,13 @@ def resolve_drone_collisions(params: DroneParams, pos: jnp.ndarray,
         else:                     # body j: cols
             c = pos[..., None, :, :]
             r_mat = rot[..., None, :, :, :]
-        u = jnp.einsum("...ba,...b->...a", r_mat, mid - c)     # R^T (mid-c)
+        u = jnp.einsum("...ba,...b->...a", r_mat, mid - c,
+                       precision=HIGHEST)                     # R^T (mid-c)
         ur = jnp.sqrt(u[..., 0] ** 2 + u[..., 1] ** 2)
         s = jnp.minimum(1.0, rc / jnp.maximum(ur, 1e-9))
         q = jnp.stack([u[..., 0] * s, u[..., 1] * s,
                        jnp.clip(u[..., 2], zoff - h2, zoff + h2)], axis=-1)
-        return c + jnp.einsum("...ab,...b->...a", r_mat, q)
+        return c + jnp.einsum("...ab,...b->...a", r_mat, q, precision=HIGHEST)
     pc = 0.5 * (surf_point(0) + surf_point(1))             # (..., N, N, 3)
     r_i = pc - pos[..., :, None, :]
     r_j = pc - pos[..., None, :, :]
@@ -479,10 +491,12 @@ def resolve_drone_collisions(params: DroneParams, pos: jnp.ndarray,
         rxd_i = jnp.cross(r_i, d_vec, axis=-1)
         rxd_j = jnp.cross(r_j, d_vec, axis=-1)
         term_i = jnp.sum(jnp.cross(
-            jnp.einsum("...ab,...b->...a", i_inv_i, rxd_i), r_i,
+            jnp.einsum("...ab,...b->...a", i_inv_i, rxd_i,
+                       precision=HIGHEST), r_i,
             axis=-1) * d_vec, axis=-1)
         term_j = jnp.sum(jnp.cross(
-            jnp.einsum("...ab,...b->...a", i_inv_j, rxd_j), r_j,
+            jnp.einsum("...ab,...b->...a", i_inv_j, rxd_j,
+                       precision=HIGHEST), r_j,
             axis=-1) * d_vec, axis=-1)
         return 2.0 * inv_m + term_i + term_j
 
@@ -500,5 +514,6 @@ def resolve_drone_collisions(params: DroneParams, pos: jnp.ndarray,
     imp = j_n[..., None] * n_hat - j_t[..., None] * t_hat  # on body i
     dv = jnp.sum(imp, axis=-2) * inv_m
     dw = jnp.sum(jnp.einsum("...ab,...b->...a", i_inv_i,
-                            jnp.cross(r_i, imp, axis=-1)), axis=-2)
+                            jnp.cross(r_i, imp, axis=-1),
+                            precision=HIGHEST), axis=-2)
     return pos, vel + dv, ang_v + dw

@@ -1,4 +1,4 @@
-"""Pod-scale parallelism: device meshes, env-batch sharding, collectives."""
+"""Multi-device parallelism: device meshes, env-batch sharding, collectives."""
 from gym_pybullet_drones_tpu.parallel.mesh import (  # noqa: F401
     make_mesh,
     make_sharded_update,

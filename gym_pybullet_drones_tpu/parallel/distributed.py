@@ -1,16 +1,14 @@
-"""Multi-host (pod-slice) initialization and host-level sharding helpers.
+"""Multi-host initialization and host-level sharding helpers.
 
-The reference is strictly single-process (SURVEY.md §2.4).  At pod scale the
-recipe is: initialize the jax distributed runtime on every host, build ONE
-global 1-D "data" mesh over all chips (env batch rides ICI within a host and
-DCN across hosts), and create the global env batch with
-`jax.make_array_from_process_local_data` so each host only materializes its
-local shard.  The training step itself is unchanged —
-`parallel.make_sharded_update` works on the global mesh; XLA routes the
-gradient all-reduce hierarchically over ICI then DCN.
+The reference is strictly single-process (SURVEY.md §2.4).  Across hosts
+the recipe is: initialize the jax distributed runtime on every host, build
+ONE global 1-D "data" mesh over all devices, and create the global env
+batch with `jax.make_array_from_process_local_data` so each host only
+materializes its local shard.  The training step itself is unchanged —
+`parallel.make_sharded_update` works on the global mesh, and XLA inserts
+the gradient all-reduce across it.
 
-(This image exposes a single chip; multi-host paths are exercised by the
-virtual-device tests and dry runs.)
+(Multi-host paths are exercised by the multi-process CPU tests.)
 """
 from __future__ import annotations
 
@@ -24,17 +22,16 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> int:
     """jax.distributed.initialize wrapper; returns this process's index.
 
-    With no arguments, relies on the cluster environment (TPU pod metadata)
-    like jax.distributed.initialize itself.  Safe to call once per process
-    before any jax computation.
+    num_processes=1 needs no runtime.  Otherwise the arguments go to
+    jax.distributed.initialize (with none, it reads a cluster environment
+    it knows), and its errors propagate: a bad coordinator must fail the
+    run, not train silently as one process.  Call once per process before
+    any jax computation.
     """
-    if num_processes is None or num_processes > 1:
-        try:
-            jax.distributed.initialize(
-                coordinator_address=coordinator_address,
-                num_processes=num_processes, process_id=process_id)
-        except (ValueError, RuntimeError):
-            pass  # single-process fallback
+    if num_processes != 1:
+        jax.distributed.initialize(
+            coordinator_address=coordinator_address,
+            num_processes=num_processes, process_id=process_id)
     return jax.process_index()
 
 

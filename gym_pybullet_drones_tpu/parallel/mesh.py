@@ -1,13 +1,13 @@
-"""Device-mesh sharding for pod-scale training.
+"""Device-mesh sharding for multi-device training.
 
 The reference has no distributed layer at all (SURVEY.md §2.4: single
 process, `make_vec_env(n_envs=1)`); its scale-out counterpart here is
 data-parallel environment sharding: the env batch axis is laid out across a
-1-D `("data",)` mesh (chips along ICI; multi-host extends the same axis over
-DCN via jax.distributed), policy/optimizer parameters are replicated, and
-XLA inserts the gradient all-reduce over the mesh where the minibatch loss
-reduces over the global batch — the role NCCL allreduce plays in GPU
-frameworks, expressed as compiler-inserted collectives.
+1-D `("data",)` mesh (the cards of a host are joined all to all, so one
+axis serves; multi-host extends the same axis via jax.distributed),
+policy/optimizer parameters are replicated, and XLA inserts the gradient
+all-reduce (NCCL on GPUs) over the mesh where the minibatch loss reduces
+over the global batch.
 """
 from __future__ import annotations
 

@@ -1,15 +1,12 @@
 #!/usr/bin/env python
-"""Quality side of the PPO sample-reuse lever (VERDICT round-3 next #5).
+"""Quality side of the PPO sample-reuse lever (update_epochs).
 
-The roofline (artifacts/roofline.json) showed the PPO update is
-op-granularity-bound, so the only large throughput lever at equal hardware
-efficiency is sample reuse: update_epochs 4 -> 2 raises training throughput
-30.1M -> 52.6M env-steps/s.  That lever is unactionable without its quality
-cost, so this driver trains Hover and MultiHover to the reference's solved
-thresholds (474.15 / 949.5, reference examples/learn.py:78-83) at
-update_epochs in {2, 4, 10} (one seed each, TPU) and records env-steps and
-wall-seconds to threshold per setting in artifacts/ppo_epochs_pareto.json.
-SCALING.md's "sample reuse" paragraph is written from this artifact.
+Fewer update epochs per rollout raise training throughput; that lever is
+unactionable without its quality cost, so this driver trains Hover and
+MultiHover to the reference's solved thresholds (474.15 / 949.5, reference
+examples/learn.py:78-83) at update_epochs in {2, 4, 10} (one seed each, on
+the default device) and records env-steps and wall-seconds to threshold
+per setting in artifacts/ppo_epochs_pareto.json.
 
 Usage: python scripts/ppo_epochs_pareto.py [--max_updates 1200] [--seed 0]
 """
@@ -75,7 +72,7 @@ def main():
                        "--max_updates", str(horizon),
                        "--out", out, *pop_flags]
             else:
-                cmd = [sys.executable, TRAIN, "--platform", "tpu",
+                cmd = [sys.executable, TRAIN, "--platform", "gpu",
                        "--seed", str(args.seed), "--epochs", str(ep),
                        "--max_updates", str(horizon),
                        "--out", out, *flags]

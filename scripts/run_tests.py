@@ -1,8 +1,7 @@
 #!/usr/bin/env python
 """One-command reproducible test run with per-file process isolation.
 
-VERDICT round-3 weak #1 / next #2: a single-process `pytest tests/` dies
-with SIGSEGV inside XLA:CPU `backend_compile_and_load` after ~110 tests'
+A single-process `pytest tests/` has died with SIGSEGV inside XLA:CPU `backend_compile_and_load` after ~110 tests'
 worth of in-process compilations (reproduced twice at
 tests/test_pallas.py::test_pallas_env_box_obstacle_matches_core; the same
 test passes alone, and every file passes in chunked runs) — compiler-state
@@ -11,11 +10,11 @@ process isolation: each test FILE runs in a fresh pytest subprocess, so no
 process compiles more than one file's worth of XLA programs.  Up to
 --jobs subprocesses run concurrently (default: min(4, cpu_count)).
 
-Runs share a persistent XLA compilation cache (.cache/jax_xla_cache, set
-up in tests/conftest.py): the first-ever run pays the full XLA:CPU
-compile cost of the interpret-mode Pallas programs; later runs (and
-re-runs of a single file during development) load the compiled
-executables from disk.  Set GPDT_JAX_CACHE=off to disable.
+Runs share a persistent XLA compilation cache (JAX_COMPILATION_CACHE_DIR,
+else .cache/jax_xla_cache; set up in tests/conftest.py): the first-ever
+run pays the full XLA:CPU compile cost of the interpret-mode Pallas
+programs; later runs (and re-runs of a single file during development)
+load the compiled executables from disk.
 
 Usage:  python scripts/run_tests.py [--jobs N] [extra pytest args...]
 Exit status is non-zero iff any file fails; a per-file and aggregate
@@ -48,13 +47,12 @@ def main() -> int:
 
     # Launch order: test_distributed.py FIRST — it is the suite's only
     # true multi-process proof and its workers have a hard timeout, so it
-    # must run before the interpret-mode Pallas giants can load the host
-    # (VERDICT r4 weak #2).  Then longest-first (the interpret-mode files
-    # dominate wall-clock; starting them early minimizes makespan with
-    # --jobs slots), then the rest alphabetically.  At most ONE file from
-    # HEAVY runs at a time: two interpret-mode Pallas traces sharing this
-    # 2-core host contend on XLA compile threads and run far slower than
-    # back-to-back (observed round 3/4).
+    # must run before the interpret-mode Pallas giants load the host.
+    # Then longest-first (the interpret-mode files dominate wall-clock;
+    # starting them early minimizes makespan with --jobs slots), then the
+    # rest alphabetically.  At most ONE file from HEAVY runs at a time: two
+    # interpret-mode Pallas traces sharing a 2-core host contend on XLA
+    # compile threads and run far slower than back-to-back.
     _front = ["test_distributed.py", "test_fused_mesh.py", "test_fused.py",
               "test_pallas.py", "test_ppo.py"]
     _rank = {n: i for i, n in enumerate(_front)}

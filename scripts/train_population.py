@@ -16,7 +16,7 @@ hidden 128x128).
 Usage:
   python scripts/train_population.py [--task multihover|hover]
       [--num_policies 8] [--max_updates 1400] [--epochs 10]
-      [--platform tpu|cpu] [--out artifacts/...json]
+      [--platform gpu|cpu] [--out artifacts/...json]
 """
 import argparse
 import json
@@ -52,9 +52,9 @@ def main():
                     help="population seed key; member i trains from "
                          "split(key(seed), K)[i]")
     ap.add_argument("--eval_every", type=int, default=1)
-    ap.add_argument("--platform", default="tpu")
-    ap.add_argument("--env_path", default=None,
-                    choices=[None, "fused", "batched"])
+    ap.add_argument("--platform", default="gpu",
+                    help="'cpu' forces the CPU backend; otherwise JAX's "
+                         "default device (the card)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -87,7 +87,7 @@ def main():
                     hidden=(args.hidden, args.hidden))
     K = args.num_policies
     pinit, pupd, peval, network = make_train_population(
-        cfg, task, ppo, K, env_path=args.env_path)
+        cfg, task, ppo, K)
     print(f"[population] task={args.task} K={K} env_path={pupd.env_path} "
           f"platform={jax.devices()[0].platform}", flush=True)
 

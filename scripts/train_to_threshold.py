@@ -7,7 +7,7 @@ thresholds are the reference's early-stop values
 (/root/reference/gym_pybullet_drones/examples/learn.py:78-83).
 
 Usage: python scripts/train_to_threshold.py [--multiagent | --routing]
-       [--seed 0] [--platform cpu|tpu] [--max_updates 400]
+       [--seed 0] [--platform cpu|gpu] [--max_updates 400]
 
 --routing trains the routing fork's namesake task (3 drones, reversed-line
 goals, PID waypoint actions) and targets an ALL-ARRIVALS rate >= 0.9 over
@@ -45,7 +45,7 @@ def main():
     ap.add_argument("--log_std_init", type=float, default=0.0)
     ap.add_argument("--lr", type=float, default=3e-4,
                     help="PPO learning rate (RGB runs want 1e-4: 3e-4 "
-                         "collapses the shared CNN trunk, ROUND2_NOTES.md)")
+                         "collapses the shared CNN trunk)")
     ap.add_argument("--rollout_steps", type=int, default=64)
     ap.add_argument("--anneal", action="store_true",
                     help="linear LR anneal over max_updates (used for the "
@@ -62,7 +62,7 @@ def main():
                          "mesh (make_sharded_update + mesh-wrapped env "
                          "step); uses N virtual CPU devices, so the run "
                          "proves sharded training LEARNS, not just that "
-                         "one sharded update executes (VERDICT r3 next #3)")
+                         "one sharded update executes")
     args = ap.parse_args()
 
     if args.sharded:

@@ -1,18 +1,17 @@
-"""Worker for the multi-process FUSED-kernel mesh test (VERDICT r4 next #2).
+"""Worker for the multi-process FUSED-kernel mesh test.
 
 Usage: python tests/_dist_fused_worker.py <rank> <nproc> <port>
 
-2 processes x 2 virtual CPU devices = a 4-device global mesh (the
-DCN-path analogue).  Runs the PRODUCTION multi-chip configuration —
-`make_fused_rollout(mesh=global_mesh, use_pallas=True)`, the
-shard_map-wrapped fully-fused Pallas rollout kernel — on Hover-DYN with
-512 envs (4 shards x 128 lanes), assembling the packed carry across
+2 processes x 2 virtual CPU devices = a 4-device global mesh.  Runs the
+multi-device configuration of the fused kernel —
+`make_fused_rollout(mesh=global_mesh, interpret=True)`, the
+shard_map-wrapped fully-fused rollout kernel — on Hover-DYN with one
+kernel block of envs per shard, assembling the packed carry across
 processes with `global_env_batch(env_axis=1)`, and asserts the stepped
 results are BITWISE equal to the single-process unsharded fused path
 (the kernel's lane math is env-elementwise, so any deviation is a
-partitioning bug).  This is the one layer of the pod recipe the
-in-process tests (tests/test_fused_mesh.py) and the 1-device real-backend
-check (scripts/verify_fused_mesh_tpu.py) cannot reach: the
+partitioning bug).  This is the one layer of the multi-host recipe the
+in-process tests (tests/test_fused_mesh.py) cannot reach: the
 global-array + multi-host-mesh + pallas_call interaction.
 
 Reference counterpart: the substep x drone loops being scaled,
@@ -38,6 +37,7 @@ from jax.experimental import multihost_utils  # noqa: E402
 from gym_pybullet_drones_tpu import params as P  # noqa: E402
 from gym_pybullet_drones_tpu.envs import AviaryConfig, HoverTask  # noqa: E402
 from gym_pybullet_drones_tpu.envs.fast import make_fused_rollout  # noqa: E402
+from gym_pybullet_drones_tpu.ops.pallas_fused import BLOCK  # noqa: E402
 from gym_pybullet_drones_tpu.parallel import make_mesh  # noqa: E402
 from gym_pybullet_drones_tpu.parallel.distributed import (  # noqa: E402
     global_env_batch)
@@ -48,7 +48,7 @@ assert jax.process_count() == nproc, jax.process_count()
 n_dev = len(jax.devices())
 assert n_dev == 2 * nproc, n_dev
 
-GLOBAL_ENVS = 128 * n_dev          # 128-lane tile per device shard
+GLOBAL_ENVS = 2 * BLOCK * n_dev    # two kernel blocks per device shard
 LOCAL_ENVS = GLOBAL_ENVS // nproc
 N_STEPS = 3
 
@@ -61,16 +61,16 @@ mesh = make_mesh(jax.devices())
 # carry locally, carve this host's lane slice, assemble the global sharded
 # carry with no cross-host data movement (envs live in the LANE axis)
 reset_unsharded, step_unsharded = make_fused_rollout(
-    cfg, task, GLOBAL_ENVS, use_pallas=True)
+    cfg, task, GLOBAL_ENVS, interpret=True)
 carry0_full, obs0_full = reset_unsharded()
 lo, hi = rank * LOCAL_ENVS, (rank + 1) * LOCAL_ENVS
 carry = global_env_batch(mesh, np.asarray(carry0_full)[:, lo:hi],
                          env_axis=1)
 assert carry.shape == carry0_full.shape, (carry.shape, carry0_full.shape)
 
-# the production sharded step: shard_map'd fused Pallas kernel on the mesh
+# the sharded step: shard_map'd fused kernel on the mesh
 _, step_sharded = make_fused_rollout(cfg, task, GLOBAL_ENVS, mesh=mesh,
-                                     use_pallas=True)
+                                     interpret=True)
 
 # slightly asymmetric actions so lanes are distinguishable across shards
 act_full = (0.02 * np.sin(np.arange(GLOBAL_ENVS, dtype=np.float32))

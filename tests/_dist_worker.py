@@ -3,7 +3,7 @@
 Usage: python tests/_dist_worker.py <rank> <nproc> <port>
 
 Each process owns 2 virtual CPU devices; together they form a 2-host
-"pod" whose global mesh spans (nproc * 2) devices.  Exercises the
+cluster whose global mesh spans (nproc * 2) devices.  Exercises the
 multi-host recipe of parallel/distributed.py end to end: distributed
 runtime init -> global mesh -> per-host local env reset ->
 global_env_batch assembly (no cross-host data movement) -> shard_map'd
@@ -19,9 +19,12 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
+from gym_pybullet_drones_tpu.parallel.distributed import (  # noqa: E402
+    global_env_batch, initialize)
+
 rank, nproc, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-jax.distributed.initialize(f"localhost:{port}", num_processes=nproc,
-                           process_id=rank)
+assert initialize(f"localhost:{port}", num_processes=nproc,
+                  process_id=rank) == rank
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -29,8 +32,6 @@ from gym_pybullet_drones_tpu import params as P  # noqa: E402
 from gym_pybullet_drones_tpu.envs import AviaryConfig, HoverTask  # noqa: E402
 from gym_pybullet_drones_tpu.envs.fast import make_batched_step  # noqa: E402
 from gym_pybullet_drones_tpu.parallel import make_mesh  # noqa: E402
-from gym_pybullet_drones_tpu.parallel.distributed import (  # noqa: E402
-    global_env_batch)
 from gym_pybullet_drones_tpu.utils.enums import (  # noqa: E402
     ActionType, Physics)
 

@@ -1,7 +1,7 @@
-"""Regression gates on the committed training artifacts (VERDICT r2 #3).
+"""Regression gates on the committed training artifacts.
 
 The learning-curve JSONs in artifacts/ are generated by
-scripts/train_to_threshold.py on the TPU and committed; these tests pin
+scripts/train_to_threshold.py and committed; these tests pin
 their claims so a regression (or an accidentally truncated/stale artifact)
 fails CI.  They validate the artifact contents, not a re-training run —
 the de-brittled seeded learning gates in tests/test_ppo.py cover live

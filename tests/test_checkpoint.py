@@ -46,7 +46,7 @@ def test_checkpoint_roundtrip_resume(tmp_path):
 
 
 def test_sharded_checkpoint_roundtrip_resume(tmp_path):
-    """Pod-resume path (VERDICT r4 weak #3): save a TrainState whose env
+    """Sharded-resume path: save a TrainState whose env
     batch is SHARDED over the 8-device mesh after 2 sharded updates,
     restore into a fresh learner, re-shard, continue 1 update, and assert
     the continuation is bit-identical to a no-restart run.

@@ -11,7 +11,7 @@ VERDICT.md round-1 item #7: prove (in a test, from the optimized HLO) that
 Runs on the virtual 8-device CPU mesh from conftest; the partitioning
 decisions asserted here are backend-independent (GSPMD runs before backend
 lowering), so the same program keeps the same communication pattern on a
-real TPU slice.
+real multi-GPU mesh.
 """
 import re
 

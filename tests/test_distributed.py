@@ -2,7 +2,7 @@
 
 The virtual-mesh tests (test_ppo) validate sharding semantics in one
 process; this spawns REAL separate processes connected through
-jax.distributed (the DCN-path analogue on CPU) and runs the
+jax.distributed (the multi-host path on CPU) and runs the
 parallel/distributed.py multi-host recipe end to end (SURVEY.md §2.4).
 """
 import os
@@ -55,7 +55,7 @@ def _run_workers_retry(worker: str, nproc: int = 2, timeout: int = 600,
                        extra_args: tuple = ()):
     """One retry on timeout, then FAIL (never skip): this file is the
     suite's only true multi-process proof, and a silent skip under host
-    load would let the pod recipe vanish from a green run (VERDICT r4
+    load would let the multi-host recipe vanish from a green run (VERDICT r4
     weak #2).  scripts/run_tests.py schedules this file first so the
     interpret-mode Pallas giants can't starve it."""
     for attempt in (1, 2):
@@ -80,8 +80,8 @@ FUSED_WORKER = os.path.join(os.path.dirname(__file__),
 
 
 def test_two_process_fused_kernel_mesh():
-    """The production fused Pallas kernel on a MULTI-PROCESS mesh
-    (VERDICT r4 next #2): 2 processes x 2 devices, global packed carry via
+    """The fused kernel (interpreted) on a MULTI-PROCESS mesh:
+    2 processes x 2 devices, global packed carry via
     global_env_batch(env_axis=1), stepped results bitwise-equal to the
     single-process unsharded fused path (asserted inside the rank-0
     worker, tests/_dist_fused_worker.py)."""

@@ -1,7 +1,7 @@
 """Parity tests: JAX DYN kernel vs the float64 NumPy oracle.
 
 Tolerances: the kernel reproduces the reference's arithmetic order, but XLA's
-CPU/TPU codegen may contract mul+add into FMA where NumPy's BLAS does not, so
+CPU/GPU codegen may contract mul+add into FMA where NumPy's BLAS does not, so
 exact bitwise equality across compilers is not attainable; we assert float64
 agreement to ~1e-12 per step and ~1e-9 over a 4-second rollout, which is the
 last-ulp-accumulation level.

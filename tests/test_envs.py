@@ -302,20 +302,20 @@ def test_solver_iterations_knob():
 
     cfg50 = AviaryConfig(drone=P.CF2X, num_drones=1, physics=Physics.PYB,
                          pyb_freq=240, ctrl_freq=48, solver_iterations=50)
-    # batched fast path silently uses XLA (no pallas) and still steps
+    # the batched XLA step runs any sweep count
     reset_fn, step_fn = make_batched_step(cfg50, CtrlTask(), 2,
-                                          use_pallas=True, autoreset=False)
+                                          autoreset=False)
     st, obs = reset_fn(seed=0)
     st, obs, *_ = step_fn(st, jnp.full((2, 1, 4), P.CF2X.hover_rpm))
     assert obs.shape[0] == 2
-    # fused one-launch kernel refuses: its unroll is compiled at 4
+    # the fused one-launch kernel refuses PYB physics altogether
     import pytest as _pytest
     from gym_pybullet_drones_tpu.envs.tasks import HoverTask
-    with _pytest.raises(ValueError, match="PGS sweeps"):
+    with _pytest.raises(ValueError, match="DYN"):
         make_fused_rollout(
             AviaryConfig(drone=P.CF2X, num_drones=1, physics=Physics.PYB,
                          pyb_freq=240, ctrl_freq=30, solver_iterations=50),
-            HoverTask(act=ActionType.RPM), 128, use_pallas=True)
+            HoverTask(act=ActionType.RPM), 128, interpret=True)
 
 
 def test_randomized_resets_decorrelate_envs():

@@ -1,5 +1,6 @@
-"""Fully-fused rollout kernel (ops/pallas_fused.py): step-for-step parity
-with the envs/fast.py batched path, including auto-reset semantics."""
+"""Fully-fused rollout kernel (ops/pallas_fused.py, run in the Pallas
+interpreter): step-for-step parity with the envs/fast.py batched path,
+including auto-reset semantics."""
 import numpy as np
 import pytest
 
@@ -10,14 +11,16 @@ from gym_pybullet_drones_tpu import params as P
 from gym_pybullet_drones_tpu.envs import (
     AviaryConfig, HoverTask, MultiHoverTask)
 from gym_pybullet_drones_tpu.envs.fast import (
-    make_batched_step, make_fused_rollout)
+    fused_ineligibility, make_batched_step, make_env_step,
+    make_fused_rollout, select_env_path)
 from gym_pybullet_drones_tpu.utils.enums import ActionType, Physics
 
 
 def _compare(cfg, task, B, steps, key=0, scale=0.3, atol=2e-5):
     n = cfg.num_drones
     buf_len, act_dim = task.action_buffer_shape(cfg)
-    f_reset, f_step = make_fused_rollout(cfg, task, B, obs_layout="flat", use_pallas=True)
+    f_reset, f_step = make_fused_rollout(cfg, task, B, obs_layout="flat",
+                                        interpret=True)
     r_reset, r_step = make_batched_step(cfg, task, B, obs_layout="flat")
     fc, fobs = f_reset()
     rs, robs = r_reset()
@@ -71,13 +74,23 @@ def test_fused_one_d_rpm():
 
 
 def test_fused_pyb_physics_parity():
-    """PYB-family physics (ground contact + aero) through the fused kernel."""
+    """PYB-family physics (ground contact + aero) is not the fused kernel's:
+    the path rule sends it to the XLA batched step, which steps it."""
     cfg = AviaryConfig(drone=P.CF2X, num_drones=2,
                        physics=Physics.PYB_GND_DRAG_DW,
                        pyb_freq=240, ctrl_freq=60,
                        init_xyzs=((0.0, 0.0, 0.08), (0.05, 0.0, 0.6)))
-    _compare(cfg, MultiHoverTask(act=ActionType.RPM), 4, steps=4,
-             scale=0.05)
+    task = MultiHoverTask(act=ActionType.RPM)
+    assert "DYN" in fused_ineligibility(cfg, task)
+    with pytest.raises(ValueError, match="DYN"):
+        make_fused_rollout(cfg, task, 4, interpret=True)
+    path, reset_fn, step_fn = make_env_step(cfg, task, 4, interpret=True)
+    assert path == "batched"
+    state, obs = reset_fn()
+    a = 0.05 * jax.random.normal(jax.random.PRNGKey(0), (4, 2, 4))
+    state, obs, r, te, tr = jax.jit(step_fn)(state, a)
+    assert obs.shape == (4, 2 * task.obs_dim(cfg))
+    assert bool(jnp.all(jnp.isfinite(obs)))
 
 
 def test_fused_pid_action_parity():
@@ -96,9 +109,10 @@ def test_fused_vel_action_parity():
 
 
 def test_fused_routing_parity():
-    """RoutingTask: PID waypoint actions + PYB physics + extra obs rows."""
+    """RoutingTask: PID waypoint actions + DYN physics + extra obs rows."""
     from gym_pybullet_drones_tpu.envs import make_routing_config
-    cfg, task = make_routing_config(num_drones=3, spacing=0.4)
+    cfg, task = make_routing_config(num_drones=3, spacing=0.4,
+                                    physics=Physics.DYN)
     _compare(cfg, task, 4, steps=6, scale=0.3, atol=5e-5)
 
 
@@ -109,14 +123,17 @@ def test_fused_rejects_ineligible():
     with pytest.raises(ValueError):
         make_fused_rollout(
             cfg, HoverTask(act=ActionType.RPM, reset_pos_noise=0.1), 8,
-            use_pallas=True)
+            interpret=True)
     with pytest.raises(ValueError):
         make_fused_rollout(
             cfg, HoverTask(act=ActionType.RPM, obs=ObservationType.RGB), 8,
-            use_pallas=True)
-    # on a non-TPU backend the default (auto) gate also rejects, so
-    # callers fall back to the compiled XLA path instead of Pallas
-    # interpret mode
-    if jax.default_backend() != "tpu":
-        with pytest.raises(ValueError):
-            make_fused_rollout(cfg, HoverTask(act=ActionType.RPM), 8)
+            interpret=True)
+    # off the GPU the kernel runs only in the interpreter, and only when
+    # the caller asks for it; the path rule then picks the XLA step
+    with pytest.raises(ValueError, match="GPU"):
+        make_fused_rollout(cfg, HoverTask(act=ActionType.RPM), 8)
+    assert select_env_path(cfg, HoverTask(act=ActionType.RPM)) == "batched"
+    assert select_env_path(cfg, HoverTask(act=ActionType.RPM),
+                           interpret=True) == "fused"
+    assert fused_ineligibility(
+        cfg, HoverTask(act=ActionType.RPM), jnp.float64) is not None

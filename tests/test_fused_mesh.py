@@ -1,16 +1,12 @@
-"""The PRODUCTION multi-chip configuration: the fully-fused Pallas rollout
-kernel under a device mesh (make_fused_rollout(mesh=...)).
+"""The multi-device configuration of the fused kernel: the fully-fused
+rollout under a device mesh (make_fused_rollout(mesh=...)).
 
-VERDICT round-3 missing #1 / next #1: every earlier multi-chip proof ran
-make_batched_step's XLA fallback — the shard_map-wrapped fused kernel that
-SCALING.md describes as the pod-scale layout (and that every bench number
-runs on) had never been compiled or executed sharded.  These tests build it
-on the virtual 8-device CPU mesh (conftest) with the kernel forced into
-interpret mode and assert the sharded step is BITWISE equal to the
-unsharded fused step: the kernel math is elementwise along the env-lane
-axis (drones couple across ROWS within a lane, never across lanes), so any
-deviation — not just a large one — is a partitioning bug in the
-(rows, envs)-lane carry sharding (envs/fast.py make_fused_rollout,
+These tests build it on the virtual 8-device CPU mesh (conftest) with the
+kernel in the Pallas interpreter and assert the sharded step is BITWISE
+equal to the unsharded fused step: the kernel math is elementwise along the
+env-lane axis (drones couple across ROWS within a lane, never across
+lanes), so any deviation — not just a large one — is a partitioning bug in
+the (rows, envs)-lane carry sharding (envs/fast.py make_fused_rollout,
 parallel/mesh.py _env_sharding).
 
 Reference counterpart: the per-drone loops this layer replaces,
@@ -26,22 +22,25 @@ from gym_pybullet_drones_tpu import params as P
 from gym_pybullet_drones_tpu.envs import (
     AviaryConfig, HoverTask, make_routing_config)
 from gym_pybullet_drones_tpu.envs.fast import make_fused_rollout
+from gym_pybullet_drones_tpu.ops.pallas_fused import BLOCK
 from gym_pybullet_drones_tpu.parallel import make_mesh
 from gym_pybullet_drones_tpu.utils.enums import ActionType, Physics
 
 
 def _compare_sharded_vs_unsharded(cfg, task, n_dev, steps, scale=0.3):
     """Run the fused kernel sharded over n_dev devices and unsharded on the
-    SAME global batch (the mesh eligibility minimum, 128 lanes/shard) with
-    identical action streams; assert bitwise-equal outputs + carry."""
-    B = 128 * n_dev
+    SAME global batch with identical action streams; assert bitwise-equal
+    outputs + carry.  Two kernel blocks per shard: the Pallas interpreter
+    compiles a one-program grid differently from a looped one (other FMA
+    contractions), which a one-block shard would compare against."""
+    B = 2 * BLOCK * n_dev
     mesh = make_mesh(jax.devices()[:n_dev])
     n = cfg.num_drones
     _, act_dim = task.action_buffer_shape(cfg)
 
     s_reset, s_step = make_fused_rollout(cfg, task, B, mesh=mesh,
-                                         use_pallas=True)
-    u_reset, u_step = make_fused_rollout(cfg, task, B, use_pallas=True)
+                                         interpret=True)
+    u_reset, u_step = make_fused_rollout(cfg, task, B, interpret=True)
     sc, sobs = s_reset()
     uc, uobs = u_reset()
     np.testing.assert_array_equal(np.asarray(sobs), np.asarray(uobs))
@@ -69,7 +68,7 @@ def _compare_sharded_vs_unsharded(cfg, task, n_dev, steps, scale=0.3):
 
 
 def test_fused_mesh_hover_dyn():
-    """Hover-DYN-RPM, 1024 envs over 8 devices (VERDICT next #1 config A)."""
+    """Hover-DYN-RPM, one block of envs per device over 8 devices."""
     cfg = AviaryConfig(drone=P.CF2X, num_drones=1, physics=Physics.DYN,
                        pyb_freq=240, ctrl_freq=30)
     _compare_sharded_vs_unsharded(cfg, HoverTask(act=ActionType.RPM),
@@ -77,23 +76,24 @@ def test_fused_mesh_hover_dyn():
 
 
 def test_fused_mesh_routing_pyb():
-    """Routing (PYB contact + embedded PID + adjacency obs) sharded
-    (VERDICT next #1 config B).  2 drones / 2 control steps keeps the
-    interpret-mode trace ~half the 3-drone cost (VERDICT r4 next #6) while
-    still crossing the action-ring push, contact, and adjacency-obs paths;
+    """Routing (embedded PID + adjacency obs; DYN physics, the fused
+    kernel's) sharded.  2 drones / 2 control steps keeps the
+    interpret-mode trace ~half the 3-drone cost while still crossing the
+    action-ring push and adjacency-obs paths;
     sharding is drone-count-independent (the mesh partitions env LANES,
     drones couple only across rows within a lane), and the 3-drone routing
     kernel itself stays covered unsharded in
     tests/test_fused.py::test_fused_routing_parity."""
-    cfg, task = make_routing_config(num_drones=2, spacing=0.4)
+    cfg, task = make_routing_config(num_drones=2, spacing=0.4,
+                                    physics=Physics.DYN)
     _compare_sharded_vs_unsharded(cfg, task, n_dev=8, steps=2, scale=0.5)
 
 
 def test_fused_mesh_uneven_batch_rejected():
-    """Lanes-per-shard must be whole 128-lane tiles."""
+    """Every shard must hold a whole number of kernel blocks."""
     cfg = AviaryConfig(drone=P.CF2X, num_drones=1, physics=Physics.DYN,
                        pyb_freq=240, ctrl_freq=30)
     mesh = make_mesh(jax.devices()[:8])
-    with pytest.raises(ValueError, match="128"):
-        make_fused_rollout(cfg, HoverTask(act=ActionType.RPM), 512,
-                           mesh=mesh, use_pallas=True)
+    with pytest.raises(ValueError, match="whole blocks"):
+        make_fused_rollout(cfg, HoverTask(act=ActionType.RPM),
+                           BLOCK * 8 + 8, mesh=mesh, interpret=True)

@@ -1,11 +1,13 @@
-"""Pallas fused DYN kernel: parity vs the XLA path (interpret mode on CPU)."""
+"""The fused kernel's row bodies (ops/rows.py) and the XLA batched step
+(envs/fast.make_batched_step) against the core XLA kernels."""
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
 
 from gym_pybullet_drones_tpu import params as P
-from gym_pybullet_drones_tpu.ops import pallas_dyn
+from gym_pybullet_drones_tpu.ops import rows
 from gym_pybullet_drones_tpu.ops.dynamics import DynState, dyn_step
 from gym_pybullet_drones_tpu.envs import AviaryConfig, HoverTask
 from gym_pybullet_drones_tpu.envs.fast import make_batched_step
@@ -29,6 +31,17 @@ def _rand_state(B, seed=0):
                     ang_v=jnp.zeros((B, 3), jnp.float32)), rng
 
 
+def _row_dyn_step(model, st, n_sub, rpm):
+    """rows._motor_mix + rows._dyn_substeps on (B,) component vectors."""
+    comps = tuple(st.pos.T) + tuple(st.quat.T) + tuple(st.vel.T) \
+        + tuple(st.rpy_rates.T)
+    out = rows._dyn_substeps(model, n_sub, DT, comps,
+                             *rows._motor_mix(model, *rpm.T))
+    col = lambda i, j: jnp.stack(out[i:j], axis=-1)
+    return DynState(pos=col(0, 3), quat=col(3, 7), vel=col(7, 10),
+                    rpy_rates=col(10, 13), ang_v=col(13, 16))
+
+
 def test_pallas_matches_xla_ctrl_step():
     model = P.CF2X
     B = 8
@@ -38,7 +51,7 @@ def test_pallas_matches_xla_ctrl_step():
     ref = st
     for _ in range(8):
         ref = dyn_step(model, ref, rpm, DT)
-    out = pallas_dyn.dyn_ctrl_step(model, st, 8, DT, rpm)
+    out = _row_dyn_step(model, st, 8, rpm)
     for name in ("pos", "quat", "vel", "rpy_rates", "ang_v"):
         np.testing.assert_allclose(
             np.asarray(getattr(out, name)), np.asarray(getattr(ref, name)),
@@ -56,7 +69,7 @@ def test_pallas_matches_xla_cf2p_and_race():
         ref = st
         for _ in range(4):
             ref = dyn_step(model, ref, rpm, DT)
-        out = pallas_dyn.dyn_ctrl_step(model, st, 4, DT, rpm)
+        out = _row_dyn_step(model, st, 4, rpm)
         for name in ("pos", "quat", "vel", "rpy_rates"):
             np.testing.assert_allclose(
                 np.asarray(getattr(out, name)),
@@ -73,7 +86,7 @@ def test_pallas_zero_omega_branch():
                   rpy_rates=jnp.zeros((4, 3), jnp.float32),
                   ang_v=jnp.zeros((4, 3), jnp.float32))
     rpm = jnp.full((4, 4), model.hover_rpm, jnp.float32)
-    out = pallas_dyn.dyn_ctrl_step(model, st, 8, DT, rpm)
+    out = _row_dyn_step(model, st, 8, rpm)
     # hover: quaternion unchanged, z stays 0 (hover rpm balances gravity)
     np.testing.assert_allclose(np.asarray(out.quat), np.asarray(st.quat),
                                atol=1e-7)
@@ -85,7 +98,7 @@ def test_fast_batched_step_matches_core():
                        pyb_freq=240, ctrl_freq=30)
     task = HoverTask(act=ActionType.RPM)
     B = 4
-    reset_fn, step_fn = make_batched_step(cfg, task, B, use_pallas=True)
+    reset_fn, step_fn = make_batched_step(cfg, task, B)
     state, obs = reset_fn(seed=0)
     a = jnp.asarray(0.05 * np.random.default_rng(0).normal(size=(B, 1, 4)),
                     jnp.float32)
@@ -105,24 +118,25 @@ def test_fast_batched_step_matches_core():
     np.testing.assert_allclose(np.asarray(r2), np.asarray(r3), rtol=1e-4)
 
 
-def test_pallas_pid_polynomial_trig():
-    """In-kernel atan2/asin polynomials vs numpy over a dense grid."""
-    from gym_pybullet_drones_tpu.ops import pallas_pid
-    xs = np.linspace(-3.0, 3.0, 601).astype(np.float32)
-    np.testing.assert_allclose(np.asarray(pallas_pid._atan(jnp.asarray(xs))),
-                               np.arctan(xs), atol=3e-7)
-    ys = np.linspace(-2.0, 2.0, 41).astype(np.float32)
-    yy, xx = np.meshgrid(ys, xs[::10])
-    got = np.asarray(pallas_pid._atan2(jnp.asarray(yy), jnp.asarray(xx)))
-    np.testing.assert_allclose(got, np.arctan2(yy, xx), atol=1e-6)
-    ss = np.linspace(-1.0, 1.0, 201).astype(np.float32)
-    np.testing.assert_allclose(np.asarray(pallas_pid._asin(jnp.asarray(ss))),
-                               np.arcsin(ss), atol=2e-6)
+def test_row_euler_matches_quat_to_rpy():
+    """rows.quat_rpy_rows (the kernel's Euler extraction) vs ops/quat,
+    including un-normalized quaternions."""
+    from gym_pybullet_drones_tpu.ops import quat as quat_ops
+    rng = np.random.default_rng(9)
+    q = rng.normal(size=(512, 4)).astype(np.float32)
+    q[:4] = [[0, 0, 0, 1], [0, 0, 0, 3.0], [0.3, 0, 0, 2.0],
+             [0.5, 0.5, 0.5, 0.5]]
+    got = np.stack(rows.quat_rpy_rows(*jnp.asarray(q).T), axis=-1)
+    ref = np.asarray(quat_ops.quat_to_rpy(jnp.asarray(q)))
+    # away from gimbal lock (|pitch| < 1.5, where roll and yaw are
+    # ill-conditioned) the angles agree to float32 rounding
+    ok = np.abs(ref[:, 1]) < 1.5
+    assert ok.sum() > 400
+    np.testing.assert_allclose(got[ok], ref[ok], atol=2e-5)
 
 
 def test_pallas_pid_kernel_matches_xla_chain():
-    """Fused PID+DYN kernel vs dsl_pid.compute_control + dyn_step chain."""
-    from gym_pybullet_drones_tpu.ops import pallas_pid
+    """Row PID tick + DYN substeps vs dsl_pid.compute_control + dyn_step."""
     from gym_pybullet_drones_tpu.control import dsl_pid
     model = P.CF2X
     B = 16
@@ -141,8 +155,18 @@ def test_pallas_pid_kernel_matches_xla_chain():
     trr = jnp.zeros((B, 3), jnp.float32)
 
     ctrl_dt, n_sub = 1 / 30, 8
-    out, new_pid, rpm = pallas_pid.pid_dyn_ctrl_step(
-        model, model, st, pid, n_sub, DT, ctrl_dt, tp, trpy, tv, trr)
+    state_rows = tuple(st.pos.T) + tuple(st.quat.T) + tuple(st.vel.T) \
+        + tuple(st.rpy_rates.T)
+    pid_rows = tuple(pid.last_rpy.T) + tuple(pid.integral_pos_e.T) \
+        + tuple(pid.integral_rpy_e.T)
+    tgt_rows = tuple(tp.T) + tuple(trpy.T) + tuple(tv.T) + tuple(trr.T)
+    rpm_rows, new_rows = rows._pid_tick(model, ctrl_dt, state_rows,
+                                        pid_rows, tgt_rows)
+    rpm = jnp.stack(rpm_rows, axis=-1)
+    out = _row_dyn_step(model, st, n_sub, rpm)
+    col = lambda i, j: jnp.stack(new_rows[i:j], axis=-1)
+    new_pid = dsl_pid.PIDState(last_rpy=col(0, 3), integral_pos_e=col(3, 6),
+                               integral_rpy_e=col(6, 9))
 
     rpm_ref, pid_ref, _, _ = dsl_pid.compute_control(
         model, pid, ctrl_dt, cur_pos=st.pos, cur_quat=st.quat,
@@ -170,7 +194,7 @@ def test_fast_routing_task_matches_core():
     from gym_pybullet_drones_tpu.envs.routing import make_routing_config
     cfg, task = make_routing_config(num_drones=3, physics=Physics.DYN)
     B = 4
-    reset_fn, step_fn = make_batched_step(cfg, task, B, use_pallas=True)
+    reset_fn, step_fn = make_batched_step(cfg, task, B)
     state, obs = reset_fn(seed=0)
     keys = jax.random.split(jax.random.PRNGKey(0), B)
     cstate, cobs, _ = jax.vmap(lambda k: core.reset(cfg, task, key=k))(keys)
@@ -197,7 +221,7 @@ def test_fast_vel_action_matches_core():
                        pyb_freq=240, ctrl_freq=30)
     task = HoverTask(act=ActionType.VEL)
     B = 4
-    reset_fn, step_fn = make_batched_step(cfg, task, B, use_pallas=True)
+    reset_fn, step_fn = make_batched_step(cfg, task, B)
     state, obs = reset_fn(seed=0)
     keys = jax.random.split(jax.random.PRNGKey(0), B)
     cstate, _, _ = jax.vmap(lambda k: core.reset(cfg, task, key=k))(keys)
@@ -221,7 +245,7 @@ def test_fast_ctrl_task_flat_post():
                        pyb_freq=240, ctrl_freq=48)
     task = CtrlTask()
     B = 3
-    reset_fn, step_fn = make_batched_step(cfg, task, B, use_pallas=True, autoreset=False)
+    reset_fn, step_fn = make_batched_step(cfg, task, B, autoreset=False)
     state, obs = reset_fn(seed=0)
     assert obs.shape == (B, 2, 20)
     keys = jax.random.split(jax.random.PRNGKey(0), B)
@@ -241,7 +265,7 @@ def test_fast_ctrl_task_flat_post():
 def _compare_fast_vs_core(cfg, task, B, adim, steps=3, seed=2,
                           scale=1.0, rtol=3e-4, atol=5e-4):
     from gym_pybullet_drones_tpu.envs import core
-    reset_fn, step_fn = make_batched_step(cfg, task, B, use_pallas=True)
+    reset_fn, step_fn = make_batched_step(cfg, task, B)
     state, obs = reset_fn(seed=0)
     keys = jax.random.split(jax.random.PRNGKey(0), B)
     cstate, cobs, _ = jax.vmap(lambda k: core.reset(cfg, task, key=k))(keys)
@@ -302,7 +326,7 @@ def test_pallas_env_obstacle_matches_core():
     task = CtrlTask()
     from gym_pybullet_drones_tpu.envs import core
     B = 2
-    reset_fn, step_fn = make_batched_step(cfg, task, B, use_pallas=True, autoreset=False)
+    reset_fn, step_fn = make_batched_step(cfg, task, B, autoreset=False)
     state, _ = reset_fn()
     state = state._replace(
         vel=jnp.tile(jnp.asarray([[0.0, 1.5, 0.0]], jnp.float32), (B, 1)))
@@ -330,7 +354,7 @@ def test_fast_batched_step_multidrone():
     from gym_pybullet_drones_tpu.envs import MultiHoverTask
     task = MultiHoverTask(act=ActionType.RPM)
     B = 3
-    reset_fn, step_fn = make_batched_step(cfg, task, B, use_pallas=True)
+    reset_fn, step_fn = make_batched_step(cfg, task, B)
     state, obs = reset_fn(seed=0)
     a = jnp.asarray(0.03 * np.random.default_rng(1).normal(size=(B, 2, 4)),
                     jnp.float32)
@@ -356,7 +380,7 @@ def test_pallas_env_box_obstacle_matches_core():
     task = CtrlTask()
     from gym_pybullet_drones_tpu.envs import core
     B = 2
-    reset_fn, step_fn = make_batched_step(cfg, task, B, use_pallas=True, autoreset=False)
+    reset_fn, step_fn = make_batched_step(cfg, task, B, autoreset=False)
     state, _ = reset_fn()
     state = state._replace(
         vel=jnp.tile(jnp.asarray([[0.0, 1.5, 0.0]], jnp.float32), (B, 1)))
@@ -376,3 +400,50 @@ def test_pallas_env_box_obstacle_matches_core():
                                rtol=1e-4, atol=1e-4)
     # stopped at the -y face of the box (y = 2.0) + bounding-sphere margin
     assert float(state.pos[0, 1]) <= 2.0 - P.CF2X.collision_r + 1e-5
+
+
+_ROW_PYB_CASES = {
+    "sphere": (dict(num_drones=1, physics=Physics.PYB,
+                    init_xyzs=((0.0, 1.82, 0.5),),
+                    obstacles=((0.0, 2.0, 0.5, 0.1),)), (0.0, 1.5, 0.0)),
+    "box": (dict(num_drones=1, physics=Physics.PYB,
+                 init_xyzs=((0.0, 1.82, 0.5),),
+                 obstacles=((0.0, 2.5, 0.5, 0.5, 0.5, 0.5),)),
+            (0.0, 1.5, 0.0)),
+    "aero-pair": (dict(num_drones=2, physics=Physics.PYB_GND_DRAG_DW,
+                       init_xyzs=((0.0, 0.0, 0.08), (0.03, 0.0, 0.15))),
+                  (0.2, 0.0, -0.3)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ROW_PYB_CASES))
+def test_row_pyb_substep_matches_core(case):
+    """The PYB family runs on the XLA batched step (the fused kernel covers
+    DYN only): its flattened, drone-coupled control step — aero, ground and
+    obstacle contact, drone-drone contact — vs the vmapped core step."""
+    from gym_pybullet_drones_tpu.envs import core
+    from gym_pybullet_drones_tpu.envs.tasks import CtrlTask
+    kw, vel = _ROW_PYB_CASES[case]
+    cfg = AviaryConfig(drone=P.CF2X, pyb_freq=240, ctrl_freq=30, **kw)
+    n, B = cfg.num_drones, 3
+    rng = np.random.default_rng(4)
+    reset_fn, step_fn = make_batched_step(cfg, CtrlTask(), B,
+                                          autoreset=False)
+    state, _ = reset_fn(seed=0)
+    state = state._replace(vel=jnp.broadcast_to(
+        jnp.asarray(vel, jnp.float32), state.vel.shape))
+    keys = jax.random.split(jax.random.PRNGKey(0), B)
+    cstate, _, _ = jax.vmap(lambda k: core.reset(cfg, CtrlTask(), key=k))(
+        keys)
+    cstate = cstate._replace(vel=jnp.broadcast_to(
+        jnp.asarray(vel, jnp.float32), cstate.vel.shape))
+    rpm = jnp.asarray(P.CF2X.hover_rpm
+                      * (1 + 0.05 * rng.normal(size=(B, n, 4))), jnp.float32)
+    state = jax.jit(step_fn)(state, rpm)[0]
+    cstate = jax.vmap(lambda s, a: core.step(cfg, CtrlTask(), s, a)[0])(
+        cstate, rpm)
+    for name in ("pos", "quat", "vel", "ang_v"):
+        np.testing.assert_allclose(
+            np.asarray(getattr(state, name)).reshape(B, n, -1),
+            np.asarray(getattr(cstate, name)), rtol=1e-4, atol=1e-4,
+            err_msg=name)

@@ -1,5 +1,6 @@
 """PPO learner tests: shapes, learning signal, sharded update on CPU mesh."""
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -56,7 +57,7 @@ def test_ppo_seeded_reward_floor():
     is configuration-robust: each seed's own FIRST update is its
     random-policy baseline, and learning is asserted as a margin over that
     baseline in at least 2 of 3 seeds (40 updates, 81,920 env steps each).
-    No absolute reward value appears, so it holds on CPU-x64 and TPU-f32
+    No absolute reward value appears, so it holds on CPU-x64 and GPU-f32
     alike.
     """
     import dataclasses as dc
@@ -223,3 +224,59 @@ def test_ppo_rgb_cnn_learns():
         improvements.append(float(np.mean(rewards[-3:])) - first)
     assert max(improvements) > 0.15, \
         f"CNN PPO did not improve in either seed: {improvements}"
+
+
+def _flax_reference_params(kind, key, obs):
+    """Init of the same architectures written as Flax linen modules (the
+    models' former implementation), as plain nested dicts."""
+    nn = pytest.importorskip("flax.linen")
+    ortho = nn.initializers.orthogonal
+
+    class MLP(nn.Module):
+        @nn.compact
+        def __call__(self, x):
+            for out, gain in ((4, 0.01), (1, 1.0)):
+                v = x
+                for _ in range(2):
+                    v = nn.tanh(nn.Dense(64, kernel_init=ortho(np.sqrt(2)))(v))
+                nn.Dense(out, kernel_init=ortho(gain))(v)
+            return x
+
+    class CNN(nn.Module):
+        @nn.compact
+        def __call__(self, x):
+            x = x.reshape(x.shape[:-1] + (48, 64, 4))
+            for feat, k, s in ((32, 8, 4), (64, 4, 2), (64, 3, 1)):
+                x = nn.relu(nn.Conv(feat, (k, k), strides=(s, s),
+                                    padding="VALID",
+                                    kernel_init=ortho(np.sqrt(2)))(x))
+            x = nn.Dense(512, kernel_init=ortho(np.sqrt(2)))(
+                x.reshape(x.shape[:-3] + (-1,)))
+            nn.Dense(4, kernel_init=ortho(0.01))(x)
+            nn.Dense(1, kernel_init=ortho(1.0))(x)
+            return x
+
+    return (MLP if kind == "mlp" else CNN)().init(key, obs)["params"]
+
+
+@pytest.mark.parametrize("kind", ["mlp", "cnn"])
+def test_model_init_matches_flax_linen(kind):
+    """The plain-JAX models initialise exactly as the Flax modules they
+    replaced: the same orthogonal gains and the same per-layer keys."""
+    from gym_pybullet_drones_tpu.models import ActorCritic, ActorCriticCNN
+    key = jax.random.key(7)
+    if kind == "mlp":
+        obs = jnp.zeros((1, 12))
+        ours = ActorCritic(action_dim=4).init(key, obs)
+        layers = ours["pi"] + ours["vf"]
+    else:
+        obs = jnp.zeros((1, 48 * 64 * 4))
+        ours = ActorCriticCNN(action_dim=4).init(key, obs)
+        layers = ours["convs"] + [ours["trunk"], ours["pi"], ours["vf"]]
+    ref = _flax_reference_params(kind, key, obs)
+    names = [n for n in ref if n.startswith("Conv")] + \
+        [n for n in ref if n.startswith("Dense")]
+    assert len(names) == len(layers)
+    for name, layer in zip(names, layers):
+        np.testing.assert_array_equal(layer["w"], ref[name]["kernel"])
+        np.testing.assert_array_equal(layer["b"], ref[name]["bias"])

@@ -3,7 +3,7 @@
 Every test here drives the genuine classes from /root/reference/
 gym_pybullet_drones (BaseAviary, CtrlAviary, HoverAviary, BaseRLAviary,
 DSLPIDControl) — imported verbatim under tests/ref_harness — and asserts the
-TPU framework reproduces their step-by-step outputs in float64.
+JAX framework reproduces their step-by-step outputs in float64.
 
 Oracle independence:
 - In Physics.DYN the reference uses PyBullet only as a state store
@@ -108,7 +108,7 @@ def test_shim_quat_matches_scipy(ref):
         np.testing.assert_allclose(q_rt, q, atol=1e-12)
 
 
-def test_shim_quat_matches_tpu_ops(ref):
+def test_shim_quat_matches_package_ops(ref):
     """My ops/quat (f64) agrees with the shim's Bullet transcriptions."""
     import pybullet as pb
     from gym_pybullet_drones_tpu.ops import quat as quat_ops
@@ -179,7 +179,7 @@ def test_dyn_rollout_vs_reference(ref):
 
     The full 20-dim obs stream of the executed reference
     (BaseAviary._dynamics + _integrateQ, BaseAviary.py:815-889) must match
-    the TPU env step for step.  (VERDICT.md round-1 item #1a.)
+    the JAX env step for step.
     """
     from gym_pybullet_drones.envs.CtrlAviary import CtrlAviary
     RDrone, RPhys = _ref_enums(ref)
